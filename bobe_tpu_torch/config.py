@@ -1,0 +1,82 @@
+"""Global configuration for bobe_tpu_torch.
+
+The port computes in float64 throughout. The JAX package splits float32 fits
+and sweeps from float64 state, and routes float64 fits to the host, only
+because its TPU has no native float64; an H100 has float64 in hardware, so
+none of that split is ported.
+
+Matrix products in float32 must not silently drop to TF32 on the card: this
+module sets ``torch.backends.cuda.matmul.allow_tf32 = False`` and
+``torch.backends.cudnn.allow_tf32 = False`` when it is imported. The Gram
+kernel's float32 variant (kept for comparison with the TPU kernel's own type)
+is compared against float64 with the float32 tolerance.
+
+Device: every GP state lives on one device, chosen by :func:`set_device` (or
+the ``device=`` keyword of ``BOBE``/``GP``). The default is ``cuda`` when a
+card is visible, else ``cpu``.
+"""
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+DTYPE = torch.float64
+
+# Row-count padding granularity for GP buffers. Padded capacities keep the
+# identity pad block of the JAX package (ops/kernels.py), so states and npz
+# files carry over between the two packages unchanged.
+PAD_MULTIPLE = 128
+
+# Floor used when clipping predicted variances.
+SAFE_NOISE_FLOOR = 1e-12
+
+_DEVICE: torch.device | None = None
+
+
+def set_device(device) -> torch.device:
+    """Set the default device for new GP states ('cuda', 'cuda:1', 'cpu')."""
+    global _DEVICE
+    _DEVICE = torch.device(device)
+    return _DEVICE
+
+
+def get_device() -> torch.device:
+    """The default device: the one set last, else cuda when available."""
+    if _DEVICE is not None:
+        return _DEVICE
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def resolve_device(device=None) -> torch.device:
+    return torch.device(device) if device is not None else get_device()
+
+
+# Largest batch one batched-predict call may carry: the NS evidence bounds
+# predict at every dead point, and a single call at that size builds a
+# (cap, m) cross kernel plus its solve. Larger batches are split.
+PREDICT_CHUNK = 16384
+
+
+# Work that the port has not reached yet, by its ROADMAP.md queue-1 entry.
+ROADMAP_ITEMS = {
+    "ehmc": "1. EHMC MC pool (mc_points_method='EHMC', the default)",
+    "nuts": "2. NUTS and the final-sample NUTS fallback",
+    "dynamic_ns": "3. dynamic NS / do_final_ns",
+    "ei": "4. EI/LogEI",
+    "clf": "5. classifier path (use_clf)",
+    "gp_options": "6. SAAS/DSLP priors and the input warp",
+    "gram_backward": "7. Gram kernel backward and rectangular K(X, Xq)",
+    "resume": "8. resume and plots",
+    "cobaya": "9. Cobaya",
+    "pools": "10. Multiprocess/Distributed pools and multi-GPU",
+    "server": "11. server",
+}
+
+
+def not_ported(feature: str, item: str) -> NotImplementedError:
+    """The error every unported branch raises, naming its ROADMAP item."""
+    return NotImplementedError(
+        f"{feature} is not ported to bobe_tpu_torch yet: ROADMAP.md queue 1, "
+        f"item {ROADMAP_ITEMS[item]}")

@@ -1,0 +1,309 @@
+"""Batched nested sampling over a device-resident surrogate.
+
+Counterpart of ``bobe_tpu/infer/nested.py``. The JAX package runs the whole
+sampler as one jitted ``while_loop`` nest; here the two loops are host loops
+over batched tensor ops with the same semantics:
+
+* Batch kill: each outer step retires the K worst live points at once; the
+  r-th retired point gets the expected log-volume shrinkage
+  ``-sum_{m<=r} 1/(nlive - m)``.
+* Batch replace: K clones of random survivors are evolved by hit-and-run
+  slice sampling constrained to logL > L*, with directions from the live-set
+  covariance (whitened), the full unit-cube chord as the first bracket, and
+  ``spec`` speculative shrink candidates per lane in one batched likelihood
+  call. Every lane runs its n_repeats slice updates back to back.
+* Stopping: remaining-evidence criterion dlogz, plus call and buffer budgets.
+
+Each outer iteration reads the stopping quantities from the device once, and
+each inner iteration reads whether any lane is still active once: the host
+synchronises about (outer + inner) times per run (``NSResult.n_inner``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from .. import config
+from ..ops import chol as chol_ops
+from ..utils.log import get_logger
+
+log = get_logger("nested")
+
+
+class NSResult(NamedTuple):
+    dead_x: np.ndarray      # (n_total, d) dead + final live, sampling order
+    dead_logl: np.ndarray   # (n_total,)
+    logvol: np.ndarray      # (n_total,) assigned log prior volumes
+    logz: float             # quick accumulated estimate (use integrals for final)
+    n_calls: int
+    n_iter: int
+    nlive: int
+    success: bool
+    nlive_schedule: np.ndarray = None  # (n_total,) own live count per death
+    logvol0: float = 0.0    # log prior volume the live set was seeded in
+    n_inner: int = 0        # slice-sampling iterations over all outer steps
+
+
+def _live_cov_chol(live_x):
+    """Cholesky of the live-set empirical covariance (whitened sampling)."""
+    nlive, d = live_x.shape
+    mean = torch.mean(live_x, dim=0)
+    xc = (live_x - mean) / math.sqrt(nlive)
+    cov = xc.T @ xc + 1e-10 * torch.eye(d, dtype=live_x.dtype,
+                                        device=live_x.device)
+    return chol_ops.cholesky(cov)
+
+
+def _chord_bounds(x, e):
+    """Intersection of the lines x + t*e (rows) with the unit cube:
+    (t_lo, t_hi), each (n,)."""
+    eps = 1e-30
+    e_safe = torch.where(torch.abs(e) < eps, torch.full_like(e, eps), e)
+    t0 = (0.0 - x) / e_safe
+    t1 = (1.0 - x) / e_safe
+    lo = torch.amax(torch.minimum(t0, t1), dim=-1)
+    hi = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return lo, hi
+
+
+def _spec_candidates(u, lo, hi, spec):
+    """Speculative shrink chain: the ``spec`` candidate positions a lane's
+    slice loop would draw if every previous candidate were rejected. A
+    rejection shrinks the bracket toward 0 by the sign of the rejected t
+    only, so the chain follows from the uniforms alone. u: (spec, n);
+    lo/hi: (n,). Returns (ts (n, spec), lo_end, hi_end)."""
+    ts = []
+    for s in range(spec):
+        t = lo + (hi - lo) * u[s]
+        ts.append(t)
+        lo = torch.where(t < 0, t, lo)
+        hi = torch.where(t >= 0, t, hi)
+    return torch.stack(ts, dim=1), lo, hi
+
+
+def _resolve_spec(spec, d: int) -> int:
+    """Speculative slice-shrink depth: the given ``spec``, else 4 for
+    d >= 10 and 1 below."""
+    if spec is None:
+        spec = 4 if d >= 10 else 1
+    return max(1, int(spec))
+
+
+def _replace_batch(loglike_fn, gen, live_x, live_logl, survivor_idx, lstar,
+                   K: int, n_repeats: int, max_shrink: int, spec: int):
+    """Evolve K clones of random survivors above lstar by slice sampling.
+    Returns (x_new, l_new, n_evals (device), n_inner_iterations)."""
+    nlive, d = live_x.shape
+    dev, dt = live_x.device, live_x.dtype
+    pick = torch.randint(0, nlive - K, (K,), generator=gen, device=dev)
+    idx = survivor_idx[pick]
+    x_cur = live_x[idx]
+    l_cur = live_logl[idx]
+    chol = _live_cov_chol(live_x)  # fixed within this outer step
+
+    def draw_dirs():
+        z = torch.randn((K, d), generator=gen, dtype=dt, device=dev)
+        return z @ chol.T
+
+    e = draw_dirs()
+    lo, hi = _chord_bounds(x_cur, e)
+    rep = torch.zeros(K, dtype=torch.int64, device=dev)
+    shrink = torch.zeros(K, dtype=torch.int64, device=dev)
+    nev = torch.zeros((), dtype=torch.int64, device=dev)
+    lanes = torch.arange(K, device=dev)
+    steps = torch.arange(spec, device=dev)
+    it = 0
+    while it < n_repeats * max_shrink:
+        active = rep < n_repeats
+        if not bool(active.any()):
+            break
+        u = torch.rand((spec, K), generator=gen, dtype=dt, device=dev)
+        ts, lo_end, hi_end = _spec_candidates(u, lo, hi, spec)
+        x_try = torch.clamp(x_cur[:, None, :] + ts[..., None] * e[:, None, :],
+                            0.0, 1.0).reshape(K * spec, d)
+        l_try = loglike_fn(x_try).reshape(K, spec)
+        # candidate s is reachable only while the shrink budget lasts
+        reachable = shrink[:, None] + steps[None, :] < max_shrink
+        acc = (l_try > lstar) & reachable
+        any_acc = torch.any(acc, dim=1)
+        first = torch.argmax(acc.to(torch.int8), dim=1)
+        ok = any_acc & active
+        # exact eval accounting: draws up to acceptance, or all reachable
+        # draws on full rejection
+        n_reach = torch.clamp(max_shrink - shrink, 0, spec)
+        used = torch.where(any_acc, first + 1, n_reach)
+        nev = nev + torch.sum(torch.where(active, used, torch.zeros_like(used)))
+        x_acc = x_try.reshape(K, spec, d)[lanes, first]
+        l_acc = l_try[lanes, first]
+        x_cur = torch.where(ok[:, None], x_acc, x_cur)
+        l_cur = torch.where(ok, l_acc, l_cur)
+        nok = active & ~any_acc
+        lo = torch.where(nok, lo_end, lo)
+        hi = torch.where(nok, hi_end, hi)
+        shrink = torch.where(nok, shrink + n_reach, shrink)
+        complete = ok | (nok & (shrink >= max_shrink))
+        rep = rep + complete.to(rep.dtype)
+        e_new = draw_dirs()
+        lo_new, hi_new = _chord_bounds(x_cur, e_new)
+        e = torch.where(complete[:, None], e_new, e)
+        lo = torch.where(complete, lo_new, lo)
+        hi = torch.where(complete, hi_new, hi)
+        shrink = torch.where(complete, torch.zeros_like(shrink), shrink)
+        it += 1
+    return x_cur, l_cur, nev, it
+
+
+def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
+               nlive: int = 500, dlogz: float = 0.01, maxcall: int = int(5e6),
+               kill_frac: float = 0.1, n_repeats: int | None = None,
+               max_shrink: int = 40, max_dead: int | None = None,
+               live_x=None, live_logl=None, rng=None,
+               logvol0: float = 0.0, warn_truncation: bool = True,
+               spec: int | None = None) -> NSResult:
+    """Run nested sampling; ``loglike_apply(ctx, x)`` maps (m, d) -> (m,)
+    on ``generator``'s device.
+
+    live_x/live_logl optionally seed the live set; ``logvol0`` is the log
+    prior volume the seeded live set covers."""
+    dt = config.DTYPE
+    dev = generator.device
+    if live_x is None:
+        rng = rng if rng is not None else np.random.default_rng()
+        live_x = torch.as_tensor(rng.uniform(size=(nlive, d)), dtype=dt,
+                                 device=dev)
+    else:
+        live_x = torch.as_tensor(live_x, dtype=dt, device=dev)
+        nlive = live_x.shape[0]
+    if live_logl is None:
+        live_logl = loglike_apply(ctx, live_x)
+    live_logl = torch.as_tensor(live_logl, dtype=dt, device=dev)
+
+    K = max(1, int(round(nlive * kill_frac)))
+    if n_repeats is None:
+        n_repeats = max(3, int(math.ceil(1.5 * d)))
+    spec = _resolve_spec(spec, d)
+    if max_dead is None:
+        max_dead = int(min(1_000_000, max(20_000, nlive * 80)))
+    max_dead = ((max_dead + K - 1) // K) * K  # multiple of K
+    loglike_fn = lambda x: loglike_apply(ctx, x)
+
+    hs = torch.cumsum(1.0 / (nlive - torch.arange(K, dtype=dt, device=dev)),
+                      dim=0)
+    logvol = torch.tensor(float(logvol0), dtype=dt, device=dev)
+    logz = torch.tensor(-1e300, dtype=dt, device=dev)
+    calls = torch.zeros((), dtype=torch.int64, device=dev)
+    dead_x, dead_logl, dead_lv = [], [], []
+    n_dead = n_iter = n_inner = 0
+    while True:
+        delta = torch.logaddexp(logz, torch.max(live_logl) + logvol) - logz
+        delta_h, calls_h = torch.stack([delta, calls.to(dt)]).tolist()
+        if not (delta_h > dlogz and n_dead + K <= max_dead
+                and calls_h < maxcall):
+            break
+        order = torch.argsort(live_logl, stable=True)
+        kill_idx = order[:K]
+        lstar = live_logl[order[K - 1]]
+        lv_batch = logvol - hs
+        dl = live_logl[kill_idx]
+        dead_x.append(live_x[kill_idx])
+        dead_logl.append(dl)
+        dead_lv.append(lv_batch)
+        # quick rectangle logz accumulation (stopping rule only)
+        lv_prev = torch.cat([logvol[None], lv_batch[:-1]])
+        logdvol = lv_prev + torch.log1p(
+            -torch.exp(torch.clamp(lv_batch - lv_prev, max=-1e-12)))
+        logz = torch.logaddexp(logz, torch.logsumexp(dl + logdvol, dim=0))
+        x_new, l_new, rep_calls, inner = _replace_batch(
+            loglike_fn, generator, live_x, live_logl, order[K:], lstar, K,
+            int(n_repeats), int(max_shrink), spec)
+        live_x = live_x.index_copy(0, kill_idx, x_new)
+        live_logl = live_logl.index_copy(0, kill_idx, l_new)
+        n_dead += K
+        logvol = logvol - hs[-1]
+        calls = calls + rep_calls
+        n_iter += 1
+        n_inner += inner
+
+    cat = lambda parts, shape: (torch.cat(parts).cpu().numpy() if parts
+                                else np.zeros(shape))
+    dead_x = cat(dead_x, (0, d))
+    dead_logl = cat(dead_logl, (0,))
+    dead_lv = cat(dead_lv, (0,))
+    logvol = float(logvol)
+    logz = float(logz)
+    calls = int(calls)
+    live_x = live_x.cpu().numpy()
+    live_logl = live_logl.cpu().numpy()
+
+    # append the final live set: remaining volume split uniformly
+    # X_i = X_end * (nlive - i)/nlive for the i-th in ascending logl
+    live_order = np.argsort(live_logl)
+    lx = live_x[live_order]
+    ll = live_logl[live_order]
+    frac = (nlive - np.arange(1, nlive + 1)) / nlive
+    lv_live = logvol + np.log(np.clip(frac, 1e-300, None))
+
+    all_x = np.concatenate([dead_x, lx])
+    all_logl = np.concatenate([dead_logl, ll])
+    all_lv = np.concatenate([dead_lv, lv_live])
+    # own live-count schedule: within each kill batch the count decays
+    # nlive, ..., nlive-K+1; the final unwind decays nlive..1
+    sched_dead = np.tile(nlive - np.arange(K), n_dead // K)[:n_dead]
+    sched_live = nlive - np.arange(nlive)
+    schedule = np.concatenate([sched_dead, sched_live]).astype(float)
+
+    if calls >= maxcall and warn_truncation:
+        log.warning(
+            f"NS terminated on maxcall={maxcall} before reaching dlogz="
+            f"{dlogz} (n_iter={n_iter}); logZ is truncated low — raise "
+            "maxcall (samplers.nested_sampling scales it automatically)")
+    elif n_dead + K > max_dead and warn_truncation:
+        delta_end = float(np.logaddexp(logz, np.max(live_logl) + logvol) - logz)
+        if delta_end > dlogz:
+            log.warning(
+                f"NS terminated on the max_dead={max_dead} buffer before "
+                f"reaching dlogz={dlogz} (n_iter={n_iter}, remaining "
+                f"delta={delta_end:.3g}); logZ is truncated low — pass a "
+                "larger max_dead")
+    success = bool(n_dead > 0 and not np.all(all_logl == all_logl[0]))
+    return NSResult(all_x, all_logl, all_lv, logz, calls, n_iter, nlive,
+                    success, schedule, float(logvol0), n_inner)
+
+
+def run_nested_dynamic(*args, **kwargs):
+    raise config.not_ported("Dynamic nested sampling", "dynamic_ns")
+
+
+def merge_runs(runs, logvol0: float = 0.0):
+    """Merge NS runs with dynesty's varying-live-count combine.
+
+    runs: list of (dead_x, dead_logl, nlive_schedule, logl_bound), where
+    nlive_schedule[i] is the run's own live count at its i-th death and
+    logl_bound is -inf for a full run. At the i-th merged death the combined
+    live count is n_i = sum_r [L_i >= bound_r] * alive_r(L_i), and volumes
+    shrink as logvol_i = logvol0 + sum_{k<=i} log(n_k / (n_k + 1)).
+
+    Returns (x, logl, logvol, n_at_death) sorted by ascending likelihood.
+    """
+    xs = np.concatenate([r[0] for r in runs], axis=0)
+    logls = np.concatenate([r[1] for r in runs], axis=0)
+    order = np.argsort(logls, kind="stable")
+    xs, logls = xs[order], logls[order]
+
+    n_at_death = np.zeros(logls.shape[0])
+    for dead_x, dead_logl, schedule, bound in runs:
+        o = np.argsort(dead_logl, kind="stable")
+        sorted_l = dead_logl[o]
+        sorted_n = np.asarray(schedule, dtype=float)[o]
+        idx = np.searchsorted(sorted_l, logls, side="left")
+        alive = np.where(idx < len(sorted_l),
+                         sorted_n[np.minimum(idx, len(sorted_l) - 1)], 0.0)
+        alive = np.where(logls >= bound, alive, 0.0)
+        n_at_death += alive
+    n_at_death = np.maximum(n_at_death, 1.0)
+
+    logvol = logvol0 + np.cumsum(np.log(n_at_death / (n_at_death + 1.0)))
+    return xs, logls, logvol, n_at_death

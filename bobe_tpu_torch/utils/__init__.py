@@ -1,0 +1,1 @@
+"""Subpackage of bobe_tpu_torch."""

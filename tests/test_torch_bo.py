@@ -1,0 +1,113 @@
+"""The port's slice end to end on the CPU: ``BOBE(...).run(acq="wipstd",
+mc_points_method="NS")`` on a 2-d Gaussian toy with an analytic evidence,
+and every branch outside the slice raising ``NotImplementedError`` with its
+ROADMAP item instead of running as something else.
+
+tests/test_bo_2d.py's runs of the JAX package use ``do_final_ns=True``, which
+the port does not have yet; this run is its small-budget counterpart with a
+loose threshold, checked against the analytic logZ.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from bobe_tpu_torch import config
+from bobe_tpu_torch.bo import BOBE
+from bobe_tpu_torch.models import toys
+from bobe_tpu_torch.parallel.pool import make_pool
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _bobe(tmp_path, **kw):
+    loglike, bounds, _ = toys.make_gaussian(2, sigma=0.15)
+    args = dict(loglikelihood=loglike, param_list=["a", "b"],
+                param_bounds=bounds, likelihood_name="gauss_port",
+                n_sobol_init=16, seed=5, save_dir=str(tmp_path),
+                verbosity="WARNING", pool="serial", device="cpu")
+    args.update(kw)
+    return BOBE(**args)
+
+
+def test_slice_end_to_end_on_a_gaussian(tmp_path):
+    _, _, logz_true = toys.make_gaussian(2, sigma=0.15)
+    bobe = _bobe(tmp_path)
+    results = bobe.run(acq="wipstd", mc_points_method="NS", min_evals=20,
+                       max_evals=60, max_gp_size=60, logz_threshold=0.5,
+                       convergence_n_iters=1, fit_n_points=4, batch_size=4,
+                       ns_n_points=4, mc_points_size=64, do_final_ns=False)
+    for key in ("gp", "likelihood", "results_manager", "best_val", "best_pt",
+                "logz", "termination_reason", "samples"):
+        assert key in results
+    logz = results["logz"]
+    assert np.isfinite(logz["mean"])
+    assert abs(logz["mean"] - logz_true) < 0.5, (logz, logz_true)
+    assert results["gp"].npoints <= 60
+    assert results["gp"].state.x.device.type == "cpu"
+    samples = results["samples"]
+    assert samples["x"].shape[1] == 2 and len(samples["weights"]) > 0
+    # samples are in the physical box
+    assert samples["x"].min() >= 0.0 and samples["x"].max() <= 1.0
+    base = os.path.join(str(tmp_path), "gauss_port")
+    for suffix in ("_results.pkl", ".txt", ".paramnames", ".ranges",
+                   "_stats.json", "_timing.json", "_intermediate.json",
+                   "_gp.npz"):
+        assert os.path.exists(base + suffix), f"missing {suffix}"
+    timing = results["results_manager"].get_timing_summary()["phase_times"]
+    assert timing["Nested Sampling"] > 0 and timing["GP Training"] > 0
+
+
+@pytest.mark.parametrize("init_kw,item", [
+    ({"use_clf": True}, "clf"),
+    ({"resume": True}, "resume"),
+    ({"server": "/tmp/bobe.sock"}, "server"),
+    ({"pool": "multiprocess"}, "pools"),
+    ({"loglikelihood": {"likelihood": {}}}, "cobaya"),
+    ({"gp_kwargs": {"input_warp": True}}, "gp_options"),
+])
+def test_unported_construction_branches_raise(tmp_path, init_kw, item):
+    with pytest.raises(NotImplementedError) as err:
+        _bobe(tmp_path, **init_kw)
+    assert config.ROADMAP_ITEMS[item] in str(err.value)
+
+
+@pytest.mark.parametrize("run_kw,item", [
+    ({"acq": "logei"}, "ei"),
+    ({"acq": "ei"}, "ei"),
+    ({"mc_points_method": "EHMC"}, "ehmc"),
+    ({}, "ehmc"),  # the default pool refresh, as in the JAX package
+    ({"mc_points_method": "NUTS"}, "nuts"),
+    ({"mc_points_method": "NS", "do_final_ns": True}, "dynamic_ns"),
+])
+def test_unported_run_branches_raise(tmp_path, run_kw, item):
+    bobe = _bobe(tmp_path, n_sobol_init=8, save=False)
+    with pytest.raises(NotImplementedError) as err:
+        bobe.run(max_evals=12, **run_kw)
+    assert config.ROADMAP_ITEMS[item] in str(err.value)
+
+
+def test_no_successful_ns_reaches_the_unported_nuts_fallback(tmp_path):
+    """A run that ends without a successful NS would fall back to NUTS
+    samples in the JAX package; the port raises instead."""
+    bobe = _bobe(tmp_path, n_sobol_init=8, save=False)
+    with pytest.raises(NotImplementedError) as err:
+        bobe.run(acq="wipstd", mc_points_method="uniform", min_evals=1000,
+                 max_evals=12, batch_size=4, fit_n_points=4)
+    assert config.ROADMAP_ITEMS["nuts"] in str(err.value)
+
+
+def test_pools_and_device():
+    assert type(make_pool("auto")).__name__ == "SerialPool"
+    with pytest.raises(ValueError):
+        make_pool("mpi")
+    assert config.get_device().type in ("cpu", "cuda")
+    assert config.DTYPE == torch.float64
+    assert torch.backends.cuda.matmul.allow_tf32 is False

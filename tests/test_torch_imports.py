@@ -1,0 +1,59 @@
+"""Import hygiene of the PyTorch port: bobe_tpu_torch never imports JAX, its
+libraries, scikit-learn or the JAX package, and importing it builds nothing.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "bobe_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "sklearn", "bobe_tpu")
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_sources_import_no_jax():
+    offenders = []
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 20
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for mod in _imported_modules(tree):
+            top = mod.split(".")[0]
+            if top in FORBIDDEN:
+                offenders.append(f"{path.relative_to(REPO)}: {mod}")
+    assert not offenders, offenders
+
+
+def test_importing_the_port_adds_no_jax_module_and_builds_nothing():
+    """Compare sys.modules before and after the import: the interpreter may
+    have imported jax at start-up already."""
+    code = (
+        "import json, sys\n"
+        "before = set(sys.modules)\n"
+        "import bobe_tpu_torch\n"
+        "import bobe_tpu_torch.bo, bobe_tpu_torch.ops.kernels as kr\n"
+        "added = sorted(m for m in set(sys.modules) - before\n"
+        "               if m.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
+        "                                      'sklearn', 'bobe_tpu'))\n"
+        "print(json.dumps({'added': added, 'lib': kr._LIB is not None,\n"
+        "                  'built': bool(kr.build_info)}))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"added": [], "lib": False, "built": False}

@@ -1,0 +1,138 @@
+"""Parity of the PyTorch port's covariance kernels (bobe_tpu_torch.ops.kernels)
+with the JAX package's, on the CPU.
+
+Inputs come from a numpy seed and go through both packages. On a CPU tensor
+``gram_masked`` computes its plain PyTorch version; the JAX side runs
+``bobe_tpu.ops.kernels.gram_masked`` (float64) and, in float32, the Pallas
+kernel in interpret mode as tests/test_pallas.py runs it. Float64 stages are
+held to rtol 1e-9; the float32 comparison with the Pallas kernel to 2e-5,
+the tolerance of tests/test_pallas.py.
+
+The CUDA kernel itself runs only on a card: see tests/test_torch_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bobe_tpu  # noqa: F401  (float64 in JAX)
+from bobe_tpu.ops import kernels as jkr
+from bobe_tpu.ops.pallas_gram import gram_masked_pallas
+from bobe_tpu_torch.ops import kernels as tkr
+
+RTOL = 1e-9
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _inputs(cap, n, d, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(cap, d))
+    x[n:] = 0.5
+    mask = (np.arange(cap) < n).astype(np.float64)
+    ls = rng.uniform(0.1, 1.5, size=d)
+    amp = float(rng.uniform(0.5, 3.0))
+    return x, mask, ls, amp
+
+
+def _t(a, dtype=torch.float64):
+    return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+@pytest.mark.parametrize("name", ["rbf", "matern"])
+@pytest.mark.parametrize("cap,n,d", [(128, 100, 2), (256, 200, 8),
+                                     (100, 37, 30)])
+def test_gram_masked_matches_jax(name, cap, n, d):
+    x, mask, ls, amp = _inputs(cap, n, d, seed=cap + d)
+    noise = 1e-6
+    want = np.asarray(jkr.gram_masked(name, jnp.asarray(x), jnp.asarray(mask),
+                                      jnp.asarray(ls), amp, noise))
+    got = tkr.gram_masked(name, _t(x), _t(mask), _t(ls), _t(amp), noise)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-14)
+    # pad block is exactly the identity, cross blocks exactly zero
+    np.testing.assert_array_equal(got[n:, n:].numpy(), np.eye(cap - n))
+    assert float(got[n:, :n].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("name", ["rbf", "matern"])
+def test_gram_masked_float32_matches_pallas_interpret(name):
+    """The TPU kernel's own type: float32 against gram_masked_pallas run in
+    interpret mode (tests/test_pallas.py's tolerance, 2e-5)."""
+    x, mask, ls, amp = _inputs(256, 100, 4, seed=0)
+    noise = 1e-4
+    want = np.asarray(gram_masked_pallas(
+        name, jnp.asarray(x), jnp.asarray(mask), jnp.asarray(ls), amp, noise,
+        interpret=True))
+    got = tkr.gram_masked(name, _t(x, torch.float32), _t(mask, torch.float32),
+                          _t(ls, torch.float32), _t(amp, torch.float32), noise)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["rbf", "matern"])
+def test_cross_kernels_and_perdim_match_jax(name):
+    x, mask, ls, amp = _inputs(128, 60, 3, seed=5)
+    xq = np.random.default_rng(6).uniform(size=(17, 3))
+    jx, jm, jls, jq = (jnp.asarray(a) for a in (x, mask, ls, xq))
+    tx, tm, tls, tq = (_t(a) for a in (x, mask, ls, xq))
+
+    np.testing.assert_allclose(
+        tkr.cross_kernel(name, tx, tq, tls, amp).numpy(),
+        np.asarray(jkr.cross_kernel(name, jx, jq, jls, amp)), rtol=RTOL)
+    np.testing.assert_allclose(
+        tkr.cross_kernel_masked(name, tx, tm, tq, tls, amp).numpy(),
+        np.asarray(jkr.cross_kernel_masked(name, jx, jm, jq, jls, amp)),
+        rtol=RTOL)
+    np.testing.assert_allclose(tkr.sq_dist_perdim(tx).numpy(),
+                               np.asarray(jkr.sq_dist_perdim(jx)), rtol=RTOL)
+    want = np.asarray(jkr.gram_masked_perdim(name, jkr.sq_dist_perdim(jx), jm,
+                                             jls, amp, 1e-8))
+    got = tkr.gram_masked_perdim(name, tkr.sq_dist_perdim(tx), tm, tls,
+                                 _t(amp), 1e-8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-14)
+    np.testing.assert_allclose(
+        tkr.kernel_diag(5, amp, 1e-3).numpy(),
+        np.asarray(jkr.kernel_diag(5, amp, 1e-3)), rtol=RTOL)
+
+
+def test_gram_masked_perdim_batches_over_lanes():
+    """The optimizer's restart lanes: a (R, d) batch of lengthscales gives
+    (R, cap, cap), lane r equal to the single build at its parameters."""
+    x, mask, ls, amp = _inputs(128, 50, 3, seed=8)
+    rng = np.random.default_rng(9)
+    lss = rng.uniform(0.1, 1.0, size=(4, 3))
+    amps = rng.uniform(0.5, 2.0, size=4)
+    dsq = tkr.sq_dist_perdim(_t(x))
+    batch = tkr.gram_masked_perdim("rbf", dsq, _t(mask), _t(lss), _t(amps),
+                                   1e-8)
+    assert batch.shape == (4, 128, 128)
+    for r in range(4):
+        single = tkr.gram_masked("rbf", _t(x), _t(mask), _t(lss[r]),
+                                 _t(amps[r]), 1e-8)
+        np.testing.assert_allclose(batch[r].numpy(), single.numpy(),
+                                   rtol=RTOL, atol=1e-14)
+
+
+def test_gram_masked_on_cpu_uses_the_plain_version():
+    """A CPU tensor takes the plain version (differentiable, no launch);
+    an unknown kernel name raises."""
+    x, mask, ls, amp = _inputs(128, 20, 2, seed=1)
+    before = tkr.gram_masked.launches
+    tls = _t(ls).requires_grad_(True)
+    K = tkr.gram_masked("rbf", _t(x), _t(mask), tls, _t(amp), 1e-8)
+    (g,) = torch.autograd.grad(K.sum(), tls)
+    assert torch.isfinite(g).all()
+    assert tkr.gram_masked.launches == before
+    with pytest.raises(ValueError):
+        tkr.gram_masked("cubic", _t(x), _t(mask), _t(ls), _t(amp), 1e-8)
+
+
+def test_kernel_library_is_not_built_at_import():
+    assert tkr._LIB is None
+    assert tkr.build_info == {}

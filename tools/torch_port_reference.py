@@ -1,0 +1,81 @@
+"""Reference numbers of the JAX package for chip_smoke.py, phase 5.
+
+Runs the JAX package (bobe_tpu) on the CPU on the N=1024, d=8 cell of
+bench.py (the same seed-0 Gaussian data):
+
+1. ``GP(noise=1e-8).fit(x0, maxiter=30)`` from bench.py's restart seeds
+   (the current hyperparameters plus three seeded draws);
+2. one convergence-mode ``nested_sampling`` on a GP built from the fitted
+   log-hyperparameters.
+
+It prints the fitted log-hyperparameters, the fit's final negative MLL, and
+the NS logZ with its ``dlogz_sampler``; chip_smoke.py carries them as
+constants and holds the PyTorch port to them on the card.
+
+    JAX_PLATFORMS=cpu python tools/torch_port_reference.py
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import numpy as np  # noqa: E402
+
+N_TRAIN, NDIM, N_RESTARTS, MAXITER, SEED = 1024, 8, 4, 30, 0
+
+
+def make_data():
+    """bench.py's data: seed-0 Gaussian log-likelihood at N_TRAIN points,
+    and the extra restart rows of the fit."""
+    rng = np.random.default_rng(SEED)
+    x = rng.uniform(size=(N_TRAIN, NDIM))
+    y = -0.5 * np.sum(((x - 0.5) / 0.2) ** 2, axis=1)
+    y += 0.01 * rng.normal(size=N_TRAIN)
+    rng.uniform(size=(64, NDIM))  # bench.py's MC points (unused here)
+    x0_extra = rng.uniform(np.log(0.05), np.log(3.0),
+                           size=(N_RESTARTS - 1, NDIM + 1))
+    return x, y, x0_extra
+
+
+def main():
+    from bobe_tpu.models.gp import GP
+    from bobe_tpu.samplers import nested_sampling
+    from bobe_tpu.utils.seed import set_global_seed
+
+    set_global_seed(0)
+    x, y, x0_extra = make_data()
+    gp = GP(train_x=x, train_y=y, noise=1e-8)
+    x0 = np.vstack([np.log(np.asarray(gp.get_hyperparams()))[None, :],
+                    x0_extra])
+    t0 = time.time()
+    info = gp.fit(x0=x0, maxiter=MAXITER)
+    t_fit = time.time() - t0
+    params = np.asarray(info["params"], dtype=np.float64)
+
+    ns_gp = GP(train_x=x, train_y=y, noise=1e-8,
+               lengthscales=np.exp(params[:NDIM]),
+               kernel_variance=float(np.exp(params[NDIM])))
+    t0 = time.time()
+    _, logz, ok = nested_sampling(ns_gp, mode="convergence",
+                                  rng=np.random.default_rng(1))
+    t_ns = time.time() - t0
+    print(json.dumps({
+        "jax": jax.__version__,
+        "log_params": params.tolist(),
+        "fit_neg_mll": -float(info["mll"]),
+        "ns_success": bool(ok),
+        "ns_logz": float(logz["mean"]),
+        "ns_dlogz_sampler": float(logz["dlogz_sampler"]),
+        "cpu_seconds_fit": t_fit, "cpu_seconds_ns": t_ns}))
+
+
+if __name__ == "__main__":
+    main()
