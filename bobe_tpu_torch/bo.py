@@ -16,7 +16,8 @@ The port runs the WIPV/WIPStd loop with an NS or uniform MC pool:
   NS pass;
 * the results dict and the result files of the JAX package.
 
-The GP state lives on ``device`` (``config.get_device()`` by default);
+The GP state lives on ``device`` (``config.get_device()``, cuda, by default;
+without a card the constructor raises unless given ``device="cpu"``);
 likelihood evaluations run on the host through the evaluation pool. Every
 branch the port has not reached yet (EI/LogEI, the EHMC/NUTS pools, the
 classifier GP, dynamic final NS, resume, Cobaya, the server, the

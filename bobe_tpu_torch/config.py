@@ -12,8 +12,9 @@ kernel's float32 variant (kept for comparison with the TPU kernel's own type)
 is compared against float64 with the float32 tolerance.
 
 Device: every GP state lives on one device, chosen by :func:`set_device` (or
-the ``device=`` keyword of ``BOBE``/``GP``). The default is ``cuda`` when a
-card is visible, else ``cpu``.
+the ``device=`` keyword of ``BOBE``/``GP``). The default is ``cuda``; without
+a visible card :func:`resolve_device` raises rather than run on the CPU
+unasked, so a run on the CPU says ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -43,14 +44,22 @@ def set_device(device) -> torch.device:
 
 
 def get_device() -> torch.device:
-    """The default device: the one set last, else cuda when available."""
+    """The default device: the one set last, else cuda."""
     if _DEVICE is not None:
         return _DEVICE
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device("cuda")
 
 
 def resolve_device(device=None) -> torch.device:
-    return torch.device(device) if device is not None else get_device()
+    """``device``, else the default; raises when that is a CUDA device and no
+    card is visible."""
+    dev = torch.device(device) if device is not None else get_device()
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"bobe_tpu_torch: device {dev} requested (the default is cuda) "
+            'but no CUDA card is visible; pass device="cpu" (or call '
+            'config.set_device("cpu")) to run on the CPU')
+    return dev
 
 
 # Largest batch one batched-predict call may carry: the NS evidence bounds
@@ -66,8 +75,9 @@ ROADMAP_ITEMS = {
     "dynamic_ns": "3. dynamic NS / do_final_ns",
     "ei": "4. EI/LogEI",
     "clf": "5. classifier path (use_clf)",
-    "gp_options": "6. SAAS/DSLP priors and the input warp",
-    "gram_backward": "7. Gram kernel backward and rectangular K(X, Xq)",
+    "gp_options": "6. SAAS/DSLP priors and the input warp (with the Gram "
+                  "kernel's gradient in x)",
+    "gram_backward": "7. rectangular masked K(X, Xq) kernel",
     "resume": "8. resume and plots",
     "cobaya": "9. Cobaya",
     "pools": "10. Multiprocess/Distributed pools and multi-GPU",

@@ -278,19 +278,16 @@ def neg_mll(state: GPState, cfg: GPTrainConfig, log_params, dsq_perdim=None):
 
     ``dsq_perdim``: precomputed per-dimension squared distances
     (ops/kernels.sq_dist_perdim); each Gram build is then a weighted slab
-    sum, and the objective is differentiable. Without it the Gram matrix
-    comes from ``gram_masked``, whose CUDA kernel is forward-only."""
+    sum. Without it every lane's Gram matrix comes from one ``gram_masked``
+    call (on the card: one forward launch, and one backward launch under
+    autograd). Differentiable either way."""
     ls, amp, tausq = _parse_log_params(cfg, state, log_params)
     mask = state.mask()
     if dsq_perdim is not None:
         K = kr.gram_masked_perdim(cfg.kernel, dsq_perdim, mask, ls, amp,
                                   cfg.noise)
-    elif log_params.dim() == 1:
-        K = kr.gram_masked(cfg.kernel, state.x, mask, ls, amp, cfg.noise)
     else:
-        K = torch.stack([kr.gram_masked(cfg.kernel, state.x, mask, ls[r],
-                                        amp[r], cfg.noise)
-                         for r in range(ls.shape[0])])
+        K = kr.gram_masked(cfg.kernel, state.x, mask, ls, amp, cfg.noise)
     y = _y_standardized(state)
     mll = mll_ops.gp_mll(K, y, state.n)
     mll = mll + _prior_logprob(cfg, state.ndim, ls, amp, tausq)

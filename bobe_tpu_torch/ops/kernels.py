@@ -6,10 +6,14 @@ multiple of ``config.PAD_MULTIPLE``; pad rows and columns of a Gram matrix
 are the identity (``K[i,i]=1, K[i,j]=0``), so the padded Cholesky factor is
 ``[[L, 0], [0, I]]`` and downstream solves need no masking (ops/chol.py).
 
-:func:`gram_masked` is the masked Gram build of every GP refresh. On a CUDA
-tensor it launches the hand-written kernel ``csrc/gram_masked.cu`` (built
-with ``nvcc`` at first use, bound with ``ctypes``) or raises; on a CPU tensor
-it computes the plain PyTorch version :func:`gram_masked_plain`.
+:func:`gram_masked` is the masked Gram build of every GP refresh and, above
+the per-dimension memory budget of the fit, of every MLL objective over the
+restart lanes. It is differentiable in the hyperparameters
+(:class:`GramMasked`). On a CUDA tensor its forward and backward launch the
+hand-written kernels of ``csrc/gram_masked.cu`` (built with ``nvcc`` at first
+use, bound with ``ctypes``) or raise; on a CPU tensor they compute the plain
+PyTorch versions :func:`gram_masked_plain` and
+:func:`gram_masked_backward_plain`.
 """
 from __future__ import annotations
 
@@ -97,34 +101,131 @@ def gram_masked_plain(name, x, mask, lengthscales, kernel_variance, noise):
     """Plain PyTorch padded Gram matrix with identity pad block (the
     reference the CUDA kernel is held to; mirrors bobe_tpu's XLA build).
 
-    x: (cap, d) padded inputs; mask: (cap,) 1.0 for active rows.
-    Returns K with K[active,active] = k(x,x) + noise*I, K[pad,pad] = I,
-    and zero cross blocks."""
-    k = cross_kernel(name, x, x, lengthscales, kernel_variance)
+    x: (cap, d) padded inputs; mask: (cap,) 1.0 for active rows. Batched
+    over leading dimensions of ``lengthscales`` (..., d) and
+    ``kernel_variance`` (...): returns (..., cap, cap), every lane with
+    K[active,active] = k(x,x) + noise*I, K[pad,pad] = I and zero cross
+    blocks."""
+    amp = torch.as_tensor(kernel_variance, dtype=x.dtype, device=x.device)
+    xs = x / lengthscales[..., None, :]
+    k = amp[..., None, None] * _corr(name, sq_dist(xs, xs))
     mm = mask[:, None] * mask[None, :]
     eye = torch.eye(x.shape[0], dtype=k.dtype, device=k.device)
     return k * mm + (noise * mask + (1.0 - mask)) * eye
 
 
+def gram_masked_backward_plain(name, x, mask, lengthscales, kernel_variance,
+                               grad):
+    """Plain PyTorch gradient of sum(grad * gram_masked) in the lengthscales
+    (R, d) and amplitudes (R,), by the explicit formulas (not autograd): with
+    D_ijk = x_ik - x_jk exact per-dimension differences,
+
+        d/damp_r = sum_ij G_ij m_i m_j corr_ij
+        d/dl_rk  = l_rk^-3 sum_ij G_ij amp_r m_i m_j c'_ij D_ijk^2
+
+    where c' = corr (RBF) or (5/3)(1 + sqrt5 r) e^{-sqrt5 r} (Matern-5/2).
+    ``grad`` is (R, cap, cap) and need not be symmetric; mask and noise are
+    not differentiated. Returns (grad_ls (R, d), grad_amp (R,))."""
+    ls, amp = lengthscales, kernel_variance
+    d = x.shape[1]
+    diffsq = [(x[:, k, None] - x[None, :, k]) ** 2 for k in range(d)]
+    dsq = sum(diffsq[k] / (ls[:, k, None, None] ** 2) for k in range(d))
+    if name == "rbf":
+        corr = torch.exp(-0.5 * dsq)
+        dcorr = corr
+    elif name == "matern":
+        r = torch.sqrt(torch.clamp(dsq, min=1e-30))
+        e = torch.exp(-SQRT5 * r)
+        corr = (1.0 + SQRT5 * r + (5.0 / 3.0) * dsq) * e
+        dcorr = (5.0 / 3.0) * (1.0 + SQRT5 * r) * e
+    else:
+        raise ValueError(f"Unknown kernel '{name}' (expected 'rbf' or "
+                         "'matern')")
+    gm = grad * (mask[:, None] * mask[None, :])
+    grad_amp = torch.sum(gm * corr, dim=(-2, -1))
+    w = gm * amp[:, None, None] * dcorr
+    grad_ls = torch.stack([torch.sum(w * diffsq[k], dim=(-2, -1))
+                           for k in range(d)], dim=-1) / ls ** 3
+    return grad_ls, grad_amp
+
+
+class GramMasked(torch.autograd.Function):
+    """gram_masked over restart lanes, differentiable in the lengthscales
+    (R, d) and amplitudes (R,). On a CUDA tensor both directions are the
+    hand-written kernels; on a CPU tensor their plain versions."""
+
+    @staticmethod
+    def forward(ctx, name, x, mask, lengthscales, kernel_variance, noise):
+        ctx.name = name
+        ctx.save_for_backward(x, mask, lengthscales, kernel_variance)
+        if x.device.type == "cpu":
+            return gram_masked_plain(name, x, mask, lengthscales,
+                                     kernel_variance, noise)
+        return _gram_masked_cuda(name, x, mask, lengthscales,
+                                 kernel_variance, noise)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, mask, ls, amp = ctx.saved_tensors
+        grad_ls, grad_amp = gram_masked_backward(ctx.name, x, mask, ls, amp,
+                                                 grad.contiguous())
+        return None, None, None, grad_ls, grad_amp, None
+
+
 def gram_masked(name, x, mask, lengthscales, kernel_variance, noise):
     """Padded training Gram matrix with identity pad block.
 
-    On a CPU tensor: :func:`gram_masked_plain`. On a CUDA tensor: the
-    hand-written kernel (csrc/gram_masked.cu), float32 or float64, or an
-    exception — never a silent fallback. The kernel is forward-only: with
-    gradients enabled and an input that requires grad it raises.
-    ``gram_masked.launches`` counts kernel launches.
+    One set of hyperparameters (lengthscales (d,), scalar kernel_variance)
+    gives (cap, cap); restart lanes (lengthscales (R, d), kernel_variance
+    (R,) or scalar) give (R, cap, cap) from one launch. Differentiable in
+    lengthscales and kernel_variance (:class:`GramMasked`); a gradient with
+    respect to x or mask raises. ``noise`` is a host float.
+
+    On a CPU tensor: the plain PyTorch versions. On a CUDA tensor: the
+    hand-written kernels (csrc/gram_masked.cu), forward in float32 or
+    float64, backward in float64, or an exception — never a silent
+    fallback. ``gram_masked.launches`` counts forward launches.
     """
-    if x.device.type == "cpu":
-        return gram_masked_plain(name, x, mask, lengthscales, kernel_variance,
-                                 noise)
-    if x.device.type != "cuda":
+    if name not in _KINDS:
+        raise ValueError(f"Unknown kernel '{name}' (expected 'rbf' or "
+                         "'matern')")
+    if isinstance(noise, torch.Tensor):
+        raise TypeError("gram_masked: noise must be a host float")
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gram_masked: unsupported device {x.device}")
-    return _gram_masked_cuda(name, x, mask, lengthscales, kernel_variance,
-                             noise)
+    if torch.is_grad_enabled() and (x.requires_grad or mask.requires_grad):
+        raise config.not_ported(
+            "The Gram kernel's gradient with respect to x", "gp_options")
+    single = lengthscales.dim() == 1
+    ls = lengthscales.reshape(1, -1) if single else lengthscales
+    amp = torch.as_tensor(kernel_variance, dtype=x.dtype, device=x.device)
+    amp = amp.reshape(-1).expand(ls.shape[0])
+    K = GramMasked.apply(name, x, mask, ls.contiguous(), amp.contiguous(),
+                         float(noise))
+    return K[0] if single else K
 
 
 gram_masked.launches = 0
+
+
+def gram_masked_backward(name, x, mask, lengthscales, kernel_variance, grad):
+    """Gradient of sum(grad * gram_masked(...)) in the lengthscales (R, d)
+    and amplitudes (R,), for grad (R, cap, cap). On a CPU tensor:
+    :func:`gram_masked_backward_plain`. On a CUDA tensor: the hand-written
+    kernel (float64 only), or an exception. ``gram_masked_backward.launches``
+    counts its launches."""
+    if x.device.type == "cpu":
+        return gram_masked_backward_plain(name, x, mask, lengthscales,
+                                          kernel_variance, grad)
+    if x.device.type != "cuda":
+        raise ValueError(f"gram_masked_backward: unsupported device "
+                         f"{x.device}")
+    return _gram_masked_backward_cuda(name, x, mask, lengthscales,
+                                      kernel_variance, grad)
+
+
+gram_masked_backward.launches = 0
 
 
 def cross_kernel_masked(name, x_train, mask, xq, lengthscales, kernel_variance):
@@ -133,13 +234,15 @@ def cross_kernel_masked(name, x_train, mask, xq, lengthscales, kernel_variance):
     return k * mask[:, None]
 
 
-# ---------------------------------------------------------------- CUDA kernel
+# --------------------------------------------------------------- CUDA kernels
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "gram_masked.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bobe_tpu_torch"
-_LIB = None
+# the kernels' output tile edge (BOBE_GRAM_TILE in csrc/gram_masked.cu)
+TILE = 64
+_LIBS: dict = {}  # tile edge -> loaded library
 _LIB_LOCK = threading.Lock()
-# filled by the build: library path, seconds, and the compiler's output
+# filled by the last build: library path, seconds, and the compiler's output
 build_info: dict = {}
 
 
@@ -155,16 +258,20 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> ctypes.CDLL:
-    """Compile csrc/gram_masked.cu for sm_90a (once per source hash) and
-    load it. Raises on a failed build."""
-    global _LIB
+def build_library(tile: int = TILE) -> ctypes.CDLL:
+    """Compile every csrc/*.cu for sm_90a into one shared library (once per
+    hash of all the sources and the tile edge) and load it. ``tile`` sets
+    the output tile edge; anything but the default is for tile-size
+    measurements (tools/torch_port_tile_sweep.py). Raises on a failed
+    build."""
     with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:16]
-        so = _BUILD_DIR / f"libgram_masked_{tag}.so"
+        if tile in _LIBS:
+            return _LIBS[tile]
+        sources = sorted(_CSRC.glob("*.cu"))
+        digest = hashlib.sha256(f"tile={tile}".encode())
+        for path in sources:
+            digest.update(path.name.encode() + b"\0" + path.read_bytes())
+        so = _BUILD_DIR / f"libbobe_kernels_{digest.hexdigest()[:16]}.so"
         t0 = time.time()
         log_text = ""
         if not so.exists():
@@ -172,7 +279,9 @@ def build_library() -> ctypes.CDLL:
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
+                   "-Xptxas", "-v", f"-DBOBE_GRAM_TILE={int(tile)}", "-o",
+                   str(tmp)]
+            cmd += [str(p) for p in sources]
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=900)
             log_text = proc.stdout + proc.stderr
@@ -182,55 +291,115 @@ def build_library() -> ctypes.CDLL:
                     f"{log_text}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        ptr = ctypes.c_void_p
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.bobe_gram_masked_f64, lib.bobe_gram_masked_f32):
             fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_double, ptr,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
-            fn.restype = ctypes.c_int
+                           i32, i32, i32, i32, ptr]
+            fn.restype = i32
+        lib.bobe_gram_masked_backward_f64.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.bobe_gram_masked_backward_f64.restype = i32
+        lib.bobe_gram_tile_pairs.argtypes = [i32]
+        lib.bobe_gram_tile_pairs.restype = i32
         build_info.update(path=str(so), seconds=time.time() - t0,
                           log=log_text)
-        _LIB = lib
+        _LIBS[tile] = lib
         return lib
 
 
-def _gram_masked_cuda(name, x, mask, lengthscales, kernel_variance, noise):
+def _check_inputs(what, x, mask, ls, amp):
+    """Shapes, dtype, device and contiguity of the kernels' inputs; returns
+    (cap, d, lanes)."""
+    if x.dim() != 2:
+        raise ValueError(f"{what}: x must be (cap, d), got {tuple(x.shape)}")
+    cap, d = x.shape
+    if ls.dim() != 2:
+        raise ValueError(f"{what}: lengthscales must be (lanes, d)")
+    lanes = ls.shape[0]
+    if mask.shape != (cap,) or ls.shape != (lanes, d) or \
+            amp.shape != (lanes,):
+        raise ValueError(
+            f"{what}: shapes x {tuple(x.shape)}, mask {tuple(mask.shape)}, "
+            f"lengthscales {tuple(ls.shape)}, amp {tuple(amp.shape)} do not "
+            "match")
+    for t in (x, mask, ls, amp):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{what}: inputs must share dtype and device")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
+    return cap, d, lanes
+
+
+def _check_launch(what, err):
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed (cudaError_t {err})")
+
+
+def launch_forward(name, x, mask, ls, amp, noise, out, tile=TILE):
+    """Launch the forward kernel into ``out`` (lanes, cap, cap) on the
+    current stream: no checks, no count, no allocation (the wrapper's
+    body, and what a device-time measurement loops over)."""
+    lib = build_library(tile)
+    fn = lib.bobe_gram_masked_f64 if x.dtype == torch.float64 \
+        else lib.bobe_gram_masked_f32
+    cap, d = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
+                 float(noise), out.data_ptr(), cap, d, ls.shape[0],
+                 _KINDS[name], stream)
+    _check_launch("gram_masked", err)
+
+
+def launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls,
+                    grad_amp, tile=TILE):
+    """Launch the backward kernels (block partials into ``scratch``, then
+    their fixed-order sum into ``grad_ls``, ``grad_amp``) on the current
+    stream: no checks, no count, no allocation."""
+    lib = build_library(tile)
+    cap, d = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.bobe_gram_masked_backward_f64(
+            x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
+            grad.data_ptr(), scratch.data_ptr(), grad_ls.data_ptr(),
+            grad_amp.data_ptr(), cap, d, ls.shape[0], _KINDS[name], stream)
+    _check_launch("gram_masked_backward", err)
+
+
+def backward_scratch_size(cap, d, lanes, tile=TILE) -> int:
+    """float64 entries of the backward's block-partial scratch."""
+    return lanes * (d + 1) * build_library(tile).bobe_gram_tile_pairs(cap)
+
+
+def _gram_masked_cuda(name, x, mask, ls, amp, noise):
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"gram_masked: dtype {x.dtype} not supported")
+    cap, _, lanes = _check_inputs("gram_masked", x, mask, ls, amp)
+    out = torch.empty((lanes, cap, cap), dtype=x.dtype, device=x.device)
+    launch_forward(name, x, mask, ls, amp, noise, out)
+    gram_masked.launches += 1
+    return out
+
+
+def _gram_masked_backward_cuda(name, x, mask, ls, amp, grad):
     if name not in _KINDS:
         raise ValueError(f"Unknown kernel '{name}' (expected 'rbf' or "
                          "'matern')")
-    if isinstance(noise, torch.Tensor):
-        raise TypeError("gram_masked: noise must be a host float on CUDA")
-    dt = x.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"gram_masked: dtype {dt} not supported")
-    amp = torch.as_tensor(kernel_variance, dtype=dt, device=x.device)
-    tensors = (x, mask, lengthscales, amp)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise config.not_ported("Differentiating through the CUDA Gram kernel",
-                                "gram_backward")
-    if x.dim() != 2:
-        raise ValueError(f"gram_masked: x must be (cap, d), got {tuple(x.shape)}")
-    cap, d = x.shape
-    if mask.shape != (cap,) or lengthscales.shape != (d,) or amp.numel() != 1:
+    if x.dtype != torch.float64:
+        raise TypeError("gram_masked_backward: the kernel takes float64 "
+                        f"only, got {x.dtype}")
+    cap, d, lanes = _check_inputs("gram_masked_backward", x, mask, ls, amp)
+    if grad.shape != (lanes, cap, cap) or grad.dtype != x.dtype or \
+            grad.device != x.device or not grad.is_contiguous():
         raise ValueError(
-            f"gram_masked: shapes x {tuple(x.shape)}, mask "
-            f"{tuple(mask.shape)}, lengthscales {tuple(lengthscales.shape)}, "
-            f"amp {tuple(amp.shape)} do not match")
-    for t in tensors:
-        if t.dtype != dt or t.device != x.device:
-            raise ValueError("gram_masked: inputs must share dtype and device")
-        if not t.is_contiguous():
-            raise ValueError("gram_masked: inputs must be contiguous")
-    lib = build_library()
-    fn = lib.bobe_gram_masked_f64 if dt == torch.float64 \
-        else lib.bobe_gram_masked_f32
-    out = torch.empty((cap, cap), dtype=dt, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), mask.data_ptr(), lengthscales.data_ptr(),
-                 amp.data_ptr(), float(noise), out.data_ptr(), cap, d,
-                 _KINDS[name], stream)
-    if err != 0:
-        raise RuntimeError(f"gram_masked: kernel launch failed "
-                           f"(cudaError_t {err})")
-    gram_masked.launches += 1
-    return out
+            f"gram_masked_backward: grad must be a contiguous "
+            f"({lanes}, {cap}, {cap}) tensor like x, got "
+            f"{tuple(grad.shape)} {grad.dtype}")
+    scratch = torch.empty(backward_scratch_size(cap, d, lanes),
+                          dtype=x.dtype, device=x.device)
+    grad_ls = torch.empty((lanes, d), dtype=x.dtype, device=x.device)
+    grad_amp = torch.empty((lanes,), dtype=x.dtype, device=x.device)
+    launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls, grad_amp)
+    gram_masked_backward.launches += 1
+    return grad_ls, grad_amp

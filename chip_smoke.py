@@ -6,21 +6,32 @@
 Phases (each prints its own lines; nothing is caught, any failure exits
 non-zero):
 
-1. build the CUDA Gram kernel from bobe_tpu_torch/csrc/gram_masked.cu;
-2. hold the kernel against its plain PyTorch version on the card, over
-   rbf/matern, float32/float64, a range of capacities and dimensions;
-3. time the kernel and the plain version (CUDA events, median of 25);
+1. build the CUDA kernels from bobe_tpu_torch/csrc/gram_masked.cu;
+2. hold the Gram forward kernel against its plain PyTorch version on the
+   card, over rbf/matern, float32/float64, a range of capacities (the main
+   path's 128, 1024 and 1280 among them) and dimensions (d=40 stages its
+   dimensions in two chunks), one and four restart lanes;
+2b. hold the Gram backward kernel against its plain version (rbf/matern,
+   float64, four capacities, four dimensions, one and four lanes, a random
+   cotangent), and two of its launches against each other bit for bit;
+3. time both kernels on the card: device time from a CUDA graph of
+   back-to-back launches into preallocated outputs, the wrapper's wall per
+   call, the plain versions (CUDA events, median of 25) and the bound;
 4. run the slice end to end: BOBE on the banana toy, WIPStd acquisition with
    an NS-mode MC pool, on the card;
 5. the slice's operations at N=1024, d=8 (the bench.py cell): a GP fit, a
    WIPStd batch, and a convergence-mode nested sampling run checked against
-   the JAX package's logZ for the same GP state.
+   the JAX package's logZ for the same GP state;
+6. a GP fit above the per-dimension budget: examples/gaussian_30d.py's
+   target at N=1200 (capacity 1280, d=30), whose every objective runs the
+   forward and backward kernels, checked against the JAX package's neg_mll.
 
-The kernel's launch count is set to 0 just before phase 4 and before
-phase 5 and read just after each; a phase that did not launch the kernel
-fails. The script prints the card's name and power limit, one JSON line
-describing every kernel, and as its last line {"ok": true, "device": {...}}.
-Without a CUDA card it exits non-zero before printing any result.
+The kernels' launch counts are set to 0 just before each of phases 4, 5 and
+6 and read just after; a phase that did not launch the forward kernel, or
+phase 6 without a backward launch, fails. The script prints the card's name
+and power limit, one JSON line describing every kernel, and as its last
+line {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
+before printing any result.
 """
 from __future__ import annotations
 
@@ -33,6 +44,20 @@ import time
 
 SOURCE = "bobe_tpu_torch/csrc/gram_masked.cu"
 REPLACES = "bobe_tpu/ops/pallas_gram.py:79"
+# the backward has no TPU kernel: it replaces the JAX package's autodiff of
+# its XLA Gram build on the fit's Gram route
+REPLACES_BACKWARD = "bobe_tpu/models/gp.py:390"
+
+# NVIDIA H100 SXM peaks (data sheet): HBM3 bandwidth, FP64 and FP32 outside
+# the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {8: 34e12, 4: 67e12}
+# f64 operations per distinct Gram entry that the function needs: 3 per
+# dimension for the distance (subtract, multiply, add), ~20 for the exp and
+# the scaling; the backward adds one FMA (2) per dimension for the gradient
+# sum w * D^2 and ~5 for the weight
+FWD_OPS = (3, 20)
+BWD_OPS = (5, 25)
 
 # ---- phase 5 reference numbers of the JAX package (bobe_tpu as of commit
 # 155be3e, JAX 0.9.0, on the CPU), printed by
@@ -51,6 +76,15 @@ ANALYTIC_LOGZ_N1024 = -5.6240
 BANANA_LOGZ = -3.185
 
 N_TRAIN, NDIM, N_RESTARTS, MAXITER, SEED = 1024, 8, 4, 30, 0
+
+# ---- phase 6 reference of the JAX package, printed by the same tool:
+# examples/gaussian_30d.py's target (d=30, sigma 0.12) at N=1200 seeded
+# uniform points with 1 % target noise, fit from four seeded restarts
+# (maxiter 20) on the JAX package's Gram route
+N30, D30, SIGMA30, MAXITER30, SEED30 = 1200, 30, 0.12, 20, 30
+JAX_D30_FIT_NEG_MLL = 1163.7814835559184
+# relative tolerance of the phase 6 neg_mll against the JAX package's
+D30_RTOL = 1e-6
 
 
 def _sync():
@@ -90,7 +124,11 @@ def phase_build():
             print(f"[phase 1] ptxas: {line.strip()}")
 
 
-def _inputs(cap, d, seed, dtype, device):
+def _inputs(cap, d, seed, dtype, device, lanes=None):
+    """x, mask (pad rows past 0.7 cap), lengthscales and amplitude: one set
+    ((d,), ()) or ``lanes`` restart lanes ((lanes, d), (lanes,)). Above d=8
+    the lengthscales grow as sqrt(d / 8), so that many correlations stay
+    well above roundoff and a fault in any dimension shows."""
     import numpy as np
     import torch
 
@@ -98,9 +136,11 @@ def _inputs(cap, d, seed, dtype, device):
     x = torch.as_tensor(rng.uniform(size=(cap, d)), device=device)
     n = max(1, int(0.7 * cap))
     mask = (torch.arange(cap, device=device) < n).double()
-    ls = torch.as_tensor(rng.uniform(0.05, 2.0, size=d), device=device)
-    amp = torch.tensor(float(rng.uniform(0.5, 3.0)), dtype=torch.float64,
-                       device=device)
+    shape = (d,) if lanes is None else (lanes, d)
+    ls = torch.as_tensor(rng.uniform(0.05, 2.0, size=shape)
+                         * max(1.0, math.sqrt(d / 8)), device=device)
+    amp = torch.as_tensor(rng.uniform(0.5, 3.0, size=shape[:-1]),
+                          dtype=torch.float64, device=device)
     return (x.to(dtype), mask.to(dtype), ls.to(dtype), amp.to(dtype), 1e-6, n)
 
 
@@ -115,62 +155,202 @@ def phase_kernel_check():
     n_cases = 0
     for name in ("rbf", "matern"):
         for dt in (torch.float64, torch.float32):
-            for cap in (100, 128, 256, 1000, 1024, 2048):
-                for d in (2, 8, 30):
-                    x, mask, ls, amp, noise, n = _inputs(
-                        cap, d, 1000 * cap + d, dt, dev)
-                    got = kr.gram_masked(name, x, mask, ls, amp, noise)
-                    want = kr.gram_masked_plain(name, x.double(),
-                                                mask.double(), ls.double(),
-                                                amp.double(), noise)
-                    rtol, atol_rel = tol[dt]
-                    err = (got.double() - want).abs()
-                    bound = atol_rel * float(amp) + rtol * want.abs()
-                    if not bool((err <= bound).all()):
-                        raise AssertionError(
-                            f"gram_masked {name} {dt} cap={cap} d={d}: max "
-                            f"error {float(err.max()):.3e} beyond tolerance")
-                    if not torch.equal(got, got.T):
-                        raise AssertionError(
-                            f"gram_masked {name} {dt} cap={cap} d={d}: not "
-                            "exactly symmetric")
-                    eye = torch.eye(cap - n, dtype=dt, device=dev)
-                    if not torch.equal(got[n:, n:], eye) or \
-                            bool(got[n:, :n].abs().max() != 0):
-                        raise AssertionError(
-                            f"gram_masked {name} {dt} cap={cap} d={d}: pad "
-                            "block is not exactly the identity")
-                    worst[dt] = max(worst[dt], float(err.max()))
-                    n_cases += 1
+            for cap in (100, 128, 256, 1000, 1001, 1024, 1280, 2048):
+                for d in (2, 8, 30, 40):
+                    for lanes in (None, 4):
+                        x, mask, ls, amp, noise, n = _inputs(
+                            cap, d, 1000 * cap + d, dt, dev, lanes)
+                        got = kr.gram_masked(name, x, mask, ls, amp, noise)
+                        want = kr.gram_masked_plain(
+                            name, x.double(), mask.double(), ls.double(),
+                            amp.double(), noise)
+                        what = (f"gram_masked {name} {dt} cap={cap} d={d} "
+                                f"lanes={lanes or 1}")
+                        rtol, atol_rel = tol[dt]
+                        err = (got.double() - want).abs()
+                        bound = atol_rel * amp.double()[..., None, None] \
+                            + rtol * want.abs()
+                        if not bool((err <= bound).all()):
+                            raise AssertionError(
+                                f"{what}: max error {float(err.max()):.3e} "
+                                "beyond tolerance")
+                        if not torch.equal(got, got.transpose(-1, -2)):
+                            raise AssertionError(f"{what}: not exactly "
+                                                 "symmetric")
+                        eye = torch.eye(cap - n, dtype=dt, device=dev)
+                        if not torch.equal(got[..., n:, n:],
+                                           eye.expand_as(got[..., n:, n:])) \
+                                or bool(got[..., n:, :n].abs().max() != 0):
+                            raise AssertionError(f"{what}: pad block is not "
+                                                 "exactly the identity")
+                        worst[dt] = max(worst[dt], float(err.max()))
+                        n_cases += 1
     _sync()
-    print(f"[phase 2] {n_cases} cases agree with gram_masked_plain (f64 on "
-          f"the card): max abs err f64 {worst[torch.float64]:.3e} "
-          f"(rtol 1e-10, atol 1e-12*amp), f32 {worst[torch.float32]:.3e} "
-          "(rtol 2e-5, atol 2e-5*amp); exactly symmetric; pad block exactly "
-          "the identity")
+    print(f"[phase 2] {n_cases} cases (lanes 1 and 4) agree with "
+          f"gram_masked_plain (f64 on the card): max abs err f64 "
+          f"{worst[torch.float64]:.3e} (rtol 1e-10, atol 1e-12*amp), f32 "
+          f"{worst[torch.float32]:.3e} (rtol 2e-5, atol 2e-5*amp); exactly "
+          "symmetric; pad block exactly the identity")
     return worst[torch.float64]
 
 
+def phase_backward_check():
+    """The backward kernel against the plain backward, per component within
+    1e-10 * sum_ij |G_ij dK_ij/dtheta| (the two sum in different orders),
+    and two launches bit-identical."""
+    import numpy as np
+    import torch
+
+    from bobe_tpu_torch.ops import kernels as kr
+
+    dev = torch.device("cuda")
+    worst_abs, worst_rel, n_cases = 0.0, 0.0, 0
+    for name in ("rbf", "matern"):
+        for cap in (128, 1024, 1280, 2048):
+            for d in (2, 8, 30, 40):
+                for lanes in (1, 4):
+                    x, mask, ls, amp, _, _ = _inputs(
+                        cap, d, 7000 + cap + d, torch.float64, dev, lanes)
+                    rng = np.random.default_rng(cap + 10 * d + lanes)
+                    g = torch.as_tensor(rng.normal(size=(lanes, cap, cap)),
+                                        device=dev)
+                    got = kr.gram_masked_backward(name, x, mask, ls, amp, g)
+                    again = kr.gram_masked_backward(name, x, mask, ls, amp, g)
+                    want = kr.gram_masked_backward_plain(name, x, mask, ls,
+                                                         amp, g)
+                    scale = kr.gram_masked_backward_plain(name, x, mask, ls,
+                                                          amp, g.abs())
+                    what = (f"gram_masked_backward {name} cap={cap} d={d} "
+                            f"lanes={lanes}")
+                    for part, k, a, w, sc in zip(("ls", "amp"), got, again,
+                                                 want, scale):
+                        err = (k - w).abs()
+                        if not bool((err <= 1e-10 * sc).all()):
+                            raise AssertionError(
+                                f"{what}: d/d{part} error "
+                                f"{float(err.max()):.3e} beyond 1e-10 * "
+                                "sum |G dK/dtheta|")
+                        if not torch.equal(k, a):
+                            raise AssertionError(f"{what}: two launches "
+                                                 f"differ in d/d{part}")
+                        worst_abs = max(worst_abs, float(err.max()))
+                        worst_rel = max(worst_rel, float((err / sc).max()))
+                    n_cases += 1
+    _sync()
+    print(f"[phase 2b] {n_cases} backward cases agree with "
+          f"gram_masked_backward_plain: max abs err {worst_abs:.3e}, max "
+          f"err / sum|G dK/dtheta| {worst_rel:.3e} (tolerance 1e-10); two "
+          "launches bit-identical in every case")
+    return worst_abs
+
+
+def _device_ms(launch, n=50, reps=5):
+    """Device time of one launch: a CUDA graph of n back-to-back launches,
+    replayed ``reps`` times between CUDA events; the median over n."""
+    import torch
+
+    launch()
+    _sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    graph.replay()
+    _sync()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _wall_ms(fn, n=50):
+    """Host wall per call of ``fn``, over n calls ending on a synchronise."""
+    fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    _sync()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def bound_ms(kind, cap, d, lanes, itemsize=8):
+    """The least time for the work: each input read once and each output
+    written once at the HBM rate, or the f64 (f32) operations on the
+    cap (cap + 1) / 2 distinct entries at the FP64 (FP32) peak, whichever is
+    larger. Returns (ms, "bytes" or "operations")."""
+    per_dim, fixed = FWD_OPS if kind == "forward" else BWD_OPS
+    inputs = cap * d + cap + lanes * (d + 1)
+    # forward: writes K; backward: reads G, writes the gradients
+    big = lanes * cap * cap
+    nbytes = itemsize * (inputs + big + (lanes * (d + 1) if kind ==
+                                         "backward" else 0))
+    ops = lanes * cap * (cap + 1) / 2 * (per_dim * d + fixed)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FLOPS[itemsize] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_kernel_time():
+    """Device time of both kernels at the main path's shapes, beside the
+    wrapper's wall, the plain versions and the bound."""
+    import numpy as np
     import torch
 
     from bobe_tpu_torch.ops import kernels as kr
 
     dev = torch.device("cuda")
     out = {}
-    for cap in (128, 1024, 2048):
-        x, mask, ls, amp, noise, _ = _inputs(cap, 8, cap, torch.float64, dev)
-        t_p0 = _median_ms(lambda: kr.gram_masked_plain("rbf", x, mask, ls,
-                                                       amp, noise))
-        t_k = _median_ms(lambda: kr.gram_masked("rbf", x, mask, ls, amp,
-                                                noise))
-        t_p1 = _median_ms(lambda: kr.gram_masked_plain("rbf", x, mask, ls,
-                                                       amp, noise))
-        t_p = min(t_p0, t_p1)
-        out[cap] = (t_k, t_p)
-        print(f"[phase 3] gram_masked rbf f64 cap={cap} d=8: kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms (plain before/after "
-              f"{t_p0:.4f}/{t_p1:.4f} ms; median of 25, CUDA events)")
+    for cap, d in ((128, 8), (1024, 8), (1280, 8), (2048, 8), (1280, 30)):
+        for lanes in (1, 4):
+            x, mask, ls, amp, noise, _ = _inputs(cap, d, cap + lanes,
+                                                 torch.float64, dev, lanes)
+            g = torch.as_tensor(np.random.default_rng(cap).normal(
+                size=(lanes, cap, cap)), device=dev)
+            k_out = torch.empty((lanes, cap, cap), dtype=torch.float64,
+                                device=dev)
+            scratch = torch.empty(kr.backward_scratch_size(cap, d, lanes),
+                                  dtype=torch.float64, device=dev)
+            g_ls = torch.empty((lanes, d), dtype=torch.float64, device=dev)
+            g_amp = torch.empty((lanes,), dtype=torch.float64, device=dev)
+            runs = {
+                "forward": (
+                    lambda: kr.launch_forward("rbf", x, mask, ls, amp, noise,
+                                              k_out),
+                    lambda: kr.gram_masked("rbf", x, mask, ls, amp, noise),
+                    lambda: kr.gram_masked_plain("rbf", x, mask, ls, amp,
+                                                 noise)),
+                "backward": (
+                    lambda: kr.launch_backward("rbf", x, mask, ls, amp, g,
+                                               scratch, g_ls, g_amp),
+                    lambda: kr.gram_masked_backward("rbf", x, mask, ls, amp,
+                                                    g),
+                    lambda: kr.gram_masked_backward_plain("rbf", x, mask, ls,
+                                                          amp, g)),
+            }
+            for kind, (launch, wrapper, plain) in runs.items():
+                t_p0 = _median_ms(plain)
+                t_dev = _device_ms(launch)
+                t_wall = _wall_ms(wrapper)
+                t_p1 = _median_ms(plain)
+                t_bound, by = bound_ms(kind, cap, d, lanes)
+                row = {"ms": t_dev, "wrapper_ms": t_wall,
+                       "plain_ms": min(t_p0, t_p1), "bound_ms": t_bound,
+                       "bound_by": by}
+                out[(kind, cap, d, lanes)] = row
+                print(f"[phase 3] {kind} rbf f64 cap={cap} d={d} "
+                      f"lanes={lanes}: device {t_dev:.4f} ms, wrapper wall "
+                      f"{t_wall:.4f} ms/call, plain {row['plain_ms']:.4f} ms "
+                      f"(before/after {t_p0:.4f}/{t_p1:.4f}), bound "
+                      f"{t_bound:.4f} ms ({by}), device/bound "
+                      f"{t_dev / t_bound:.1f}x")
     return out
 
 
@@ -347,6 +527,66 @@ def phase_real_size(device):
     return out
 
 
+def _d30_data():
+    """examples/gaussian_30d.py's target at N30 seeded uniform points with
+    0.01 N(0, 1) target noise, and the extra restart rows of the fit (the
+    same draws as tools/torch_port_reference.py's)."""
+    import numpy as np
+
+    from bobe_tpu_torch.models import toys
+
+    loglike, _, _ = toys.make_gaussian(D30, sigma=SIGMA30)
+    rng = np.random.default_rng(SEED30)
+    x = rng.uniform(size=(N30, D30))
+    y = np.array([loglike(p) for p in x]) + 0.01 * rng.normal(size=N30)
+    x0_extra = rng.uniform(np.log(0.05), np.log(3.0), size=(3, D30 + 1))
+    return x, y, x0_extra
+
+
+def build_fit_d30(device):
+    """The GP of phase 6 on its data, and the fit's four restart rows: the
+    GP's initial log-hyperparameters, then the three seeded draws."""
+    import numpy as np
+
+    from bobe_tpu_torch.models.gp import GP
+
+    x, y, x0_extra = _d30_data()
+    gp = GP(train_x=x, train_y=y, noise=1e-8, device=device)
+    x0 = np.vstack([np.log(gp.get_hyperparams().cpu().numpy())[None, :],
+                    x0_extra])
+    return gp, x0
+
+
+def phase_fit_d30(device):
+    """A d=30 fit above the per-dimension budget: every objective of the
+    four restart lanes builds its Gram matrices in one gram_masked call and
+    differentiates them through its backward."""
+    import numpy as np
+
+    from bobe_tpu_torch.models import gp as gpm
+
+    gp, x0 = build_fit_d30(device)
+    cap = gp.state.cap
+    perdim = D30 * cap * cap * 8
+    if perdim <= gpm.PERDIM_MAX_BYTES:
+        raise AssertionError(f"phase 6: {perdim} B of per-dimension "
+                             "distances is not above the fit's budget")
+    info, t_fit = _timed(lambda: gp.fit(x0=x0, maxiter=MAXITER30), device)
+    nmll = -info["mll"]
+    rel = abs(nmll - JAX_D30_FIT_NEG_MLL) / abs(JAX_D30_FIT_NEG_MLL)
+    print(f"[phase 6] GP(N={N30}, d={D30}, cap {cap}; per-dimension "
+          f"distances {perdim / 2**20:.0f} MiB > budget "
+          f"{gpm.PERDIM_MAX_BYTES / 2**20:.0f} MiB) fit ({len(x0)} "
+          f"restarts, maxiter {MAXITER30}) {t_fit:.3f} s: neg_mll "
+          f"{nmll:.6f}; JAX package on the CPU from the same x0 "
+          f"{JAX_D30_FIT_NEG_MLL:.6f}; relative difference {rel:.2e} "
+          f"(tolerance {D30_RTOL:g})")
+    if not np.isfinite(nmll) or rel > D30_RTOL:
+        raise AssertionError(f"phase 6: neg_mll {nmll} is not within "
+                             f"{D30_RTOL:g} of the JAX package's")
+    return {"fit_s": t_fit, "neg_mll": nmll}
+
+
 def main():
     import torch
 
@@ -363,25 +603,52 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
 
-    kernel = {"name": "gram_masked", "route": "cuda", "source": SOURCE,
-              "replaces": REPLACES}
+    fwd = {"name": "gram_masked", "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES}
+    bwd = {"name": "gram_masked_backward", "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES_BACKWARD}
     phase_build()
-    kernel["max_abs_err"] = phase_kernel_check()
-    kernel["ms"], kernel["plain_ms"] = phase_kernel_time()[1024]
-    # the main path: counts from 0, comparison launches above excluded
-    kr.gram_masked.launches = 0
-    phase_slice("cuda")
-    kernel["launches"] = kr.gram_masked.launches
-    print(f"[phase 4] gram_masked kernel launches: {kernel['launches']}")
-    if kernel["launches"] <= 0:
-        raise AssertionError("phase 4 did not launch the Gram kernel")
-    kr.gram_masked.launches = 0
-    phase_real_size("cuda")
-    launches5 = kr.gram_masked.launches
-    print(f"[phase 5] gram_masked kernel launches: {launches5}")
-    if launches5 <= 0:
-        raise AssertionError("phase 5 did not launch the Gram kernel")
-    print(json.dumps({"kernels": [kernel]}))
+    fwd["max_abs_err"] = phase_kernel_check()
+    bwd["max_abs_err"] = phase_backward_check()
+    times = phase_kernel_time()
+    # each kernel at its main-path shape: the N=1024 refresh, the d=30 fit
+    for entry, key in ((fwd, ("forward", 1024, 8, 1)),
+                       (bwd, ("backward", 1280, 30, 4))):
+        entry.update(times[key], library_ms=None,
+                     shape={"cap": key[1], "d": key[2], "lanes": key[3]})
+
+    # the main path, phase by phase: counts from 0, comparison launches
+    # above excluded
+    counters = (kr.gram_masked, kr.gram_masked_backward)
+    launches = {}
+    for label, run in (("4", lambda: phase_slice("cuda")),
+                       ("5", lambda: phase_real_size("cuda")),
+                       ("6", lambda: phase_fit_d30("cuda"))):
+        for c in counters:
+            c.launches = 0
+        res = run()
+        launches[label] = [c.launches for c in counters]
+        print(f"[phase {label}] kernel launches: gram_masked "
+              f"{launches[label][0]}, gram_masked_backward "
+              f"{launches[label][1]}")
+        if launches[label][0] <= 0:
+            raise AssertionError(f"phase {label} did not launch the Gram "
+                                 "kernel")
+    if launches["6"][1] <= 0:
+        raise AssertionError("phase 6 did not launch the Gram backward "
+                             "kernel")
+    t_fwd = times[("forward", 1280, 30, 4)]["ms"]
+    t_bwd = times[("backward", 1280, 30, 4)]["ms"]
+    k_ms = launches["6"][0] * t_fwd + launches["6"][1] * t_bwd
+    print(f"[phase 6] the two kernels' share of the fit: "
+          f"{launches['6'][0]} x {t_fwd:.4f} ms + {launches['6'][1]} x "
+          f"{t_bwd:.4f} ms (phase 3 device times at cap 1280, d=30, 4 "
+          f"lanes) = {k_ms:.1f} ms of {res['fit_s'] * 1e3:.1f} ms "
+          f"({100 * k_ms / (res['fit_s'] * 1e3):.2f} %)")
+    for i, entry in enumerate((fwd, bwd)):
+        entry["launches"] = sum(v[i] for v in launches.values())
+        entry["launches_by_phase"] = {k: v[i] for k, v in launches.items()}
+    print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,7 @@ import torch
 from bobe_tpu_torch import config
 from bobe_tpu_torch.bo import BOBE
 from bobe_tpu_torch.models import toys
+from bobe_tpu_torch.models.gp import GP
 from bobe_tpu_torch.parallel.pool import make_pool
 
 
@@ -104,10 +105,26 @@ def test_no_successful_ns_reaches_the_unported_nuts_fallback(tmp_path):
     assert config.ROADMAP_ITEMS["nuts"] in str(err.value)
 
 
-def test_pools_and_device():
+def test_pools_and_device(monkeypatch):
     assert type(make_pool("auto")).__name__ == "SerialPool"
     with pytest.raises(ValueError):
         make_pool("mpi")
-    assert config.get_device().type in ("cpu", "cuda")
+    monkeypatch.setattr(config, "_DEVICE", None)
+    assert config.get_device() == torch.device("cuda")
+    assert config.resolve_device("cpu") == torch.device("cpu")
     assert config.DTYPE == torch.float64
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_no_card_and_no_device_raises(tmp_path, monkeypatch):
+    """The default device is cuda: without a card, BOBE(...) and GP(...)
+    given no device= raise and name device="cpu" instead of running on
+    the CPU unasked."""
+    monkeypatch.setattr(config, "_DEVICE", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        config.resolve_device(None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _bobe(tmp_path, device=None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        GP(train_x=np.full((4, 2), 0.5), train_y=np.zeros(4))

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from bobe_tpu_torch.models import gp as tgp
 from bobe_tpu_torch.ops import kernels as tkr
 
 
@@ -52,14 +53,163 @@ def test_gram_kernel_matches_plain_on_card(cuda, name, dtype, rtol, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cap,n", [(1000, 700), (1001, 650)])
+def test_gram_kernel_lanes_match_plain_on_card(cuda, cap, n):
+    """Four restart lanes from one launch, lane r against the plain build at
+    lane r's hyperparameters; exact symmetry and an exact identity pad
+    block in every lane. cap 1001 takes the scalar edge stores, cap 1000
+    the 16-byte ones."""
+    x, mask, _, _ = _inputs(cap, n, 8, seed=4, device=cuda)
+    rng = np.random.default_rng(5)
+    ls = torch.as_tensor(rng.uniform(0.05, 2.0, size=(4, 8)), device=cuda)
+    amp = torch.as_tensor(rng.uniform(0.5, 3.0, size=4), device=cuda)
+    before = tkr.gram_masked.launches
+    got = tkr.gram_masked("matern", x, mask, ls, amp, 1e-6)
+    torch.cuda.synchronize()
+    assert tkr.gram_masked.launches == before + 1
+    eye = torch.eye(cap - n, dtype=torch.float64, device=cuda)
+    for r in range(4):
+        want = tkr.gram_masked_plain("matern", x, mask, ls[r], amp[r], 1e-6)
+        err = (got[r] - want).abs()
+        assert bool((err <= 1e-12 * float(amp[r]) + 1e-10 * want.abs()).all())
+        assert torch.equal(got[r], got[r].T)
+        assert torch.equal(got[r, n:, n:], eye)
+        assert float(got[r, n:, :n].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rbf", "matern"])
+@pytest.mark.parametrize("d,lanes", [(40, 4), (64, 1)])
+def test_gram_kernels_stage_many_dimensions_on_card(cuda, name, d, lanes):
+    """Above 32 dimensions both kernels stage the scaled panels in chunks of
+    32 (d=40: a full and a partial chunk; d=64: two full ones). Lengthscales
+    grow with d so that the correlations stay of order one. The forward
+    against the plain build, exactly symmetric with an exact identity pad
+    block; the backward against the plain backward as in
+    test_gram_backward_kernel_matches_plain_on_card."""
+    cap, n = 300, 210
+    x, mask, _, _ = _inputs(cap, n, d, seed=8, device=cuda)
+    rng = np.random.default_rng(9)
+    ls = torch.as_tensor(rng.uniform(0.5, 4.0, size=(lanes, d)), device=cuda)
+    amp = torch.as_tensor(rng.uniform(0.5, 3.0, size=lanes), device=cuda)
+    got = tkr.gram_masked(name, x, mask, ls, amp, 1e-6)
+    want = tkr.gram_masked_plain(name, x, mask, ls, amp, 1e-6)
+    err = (got - want).abs()
+    assert bool((err <= 1e-12 * amp[:, None, None] + 1e-10 * want.abs()).all())
+    assert float(want[:, :n, :n].min()) > 1e-6  # correlations of order one
+    assert torch.equal(got, got.transpose(-1, -2))
+    assert torch.equal(got[:, n:, n:], torch.eye(
+        cap - n, dtype=torch.float64, device=cuda).expand(lanes, -1, -1))
+    g = torch.as_tensor(rng.normal(size=(lanes, cap, cap)), device=cuda)
+    grads = tkr.gram_masked_backward(name, x, mask, ls, amp, g)
+    want = tkr.gram_masked_backward_plain(name, x, mask, ls, amp, g)
+    scale = tkr.gram_masked_backward_plain(name, x, mask, ls, amp, g.abs())
+    for k, w, s in zip(grads, want, scale):
+        assert bool(((k - w).abs() <= 1e-10 * s).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rbf", "matern"])
+@pytest.mark.parametrize("cap,d,lanes", [(200, 3, 1), (1280, 30, 4)])
+def test_gram_backward_kernel_matches_plain_on_card(cuda, name, cap, d,
+                                                    lanes):
+    """The backward kernel against the plain backward on the card, within
+    1e-10 * sum_ij |G_ij dK_ij/dtheta| per component (the two sum in
+    different orders), with pad rows and a non-symmetric G; two launches
+    give bit-identical gradients."""
+    x, mask, _, _ = _inputs(cap, int(0.7 * cap), d, seed=6, device=cuda)
+    rng = np.random.default_rng(7)
+    ls = torch.as_tensor(rng.uniform(0.05, 2.0, size=(lanes, d)),
+                         device=cuda)
+    amp = torch.as_tensor(rng.uniform(0.5, 3.0, size=lanes), device=cuda)
+    g = torch.as_tensor(rng.normal(size=(lanes, cap, cap)), device=cuda)
+    before = tkr.gram_masked_backward.launches
+    got = tkr.gram_masked_backward(name, x, mask, ls, amp, g)
+    again = tkr.gram_masked_backward(name, x, mask, ls, amp, g)
+    torch.cuda.synchronize()
+    assert tkr.gram_masked_backward.launches == before + 2
+    want = tkr.gram_masked_backward_plain(name, x, mask, ls, amp, g)
+    scale = tkr.gram_masked_backward_plain(name, x, mask, ls, amp, g.abs())
+    for k, w, s, a in zip(got, want, scale, again):
+        assert bool(((k - w).abs() <= 1e-10 * s).all())
+        assert torch.equal(k, a)
+
+
+@pytest.mark.cuda
 def test_gram_kernel_refuses_what_it_cannot_do(cuda):
-    """Forward only: a gradient through the kernel raises (never a silent
-    plain path); mixed dtypes and non-contiguous inputs raise."""
+    """The gradient in the lengthscales and amplitude runs both kernels (the
+    launch counts move, never a plain path); a gradient in x raises, as do
+    a float32 backward, mixed dtypes and non-contiguous inputs."""
     x, mask, ls, amp = _inputs(256, 100, 4, seed=3, device=cuda)
-    with pytest.raises(NotImplementedError, match="Gram kernel backward"):
-        tkr.gram_masked("rbf", x, mask, ls.clone().requires_grad_(True), amp,
+    fwd, bwd = tkr.gram_masked.launches, tkr.gram_masked_backward.launches
+    tls = ls.clone().requires_grad_(True)
+    K = tkr.gram_masked("rbf", x, mask, tls, amp, 1e-6)
+    (g,) = torch.autograd.grad(K.sum(), tls)
+    assert bool(torch.isfinite(g).all())
+    assert (tkr.gram_masked.launches, tkr.gram_masked_backward.launches) \
+        == (fwd + 1, bwd + 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tkr.gram_masked("rbf", x.clone().requires_grad_(True), mask, ls, amp,
                         1e-6)
+    x32, m32, l32, a32 = (t.float() for t in (x, mask, ls, amp))
+    K32 = tkr.gram_masked("rbf", x32, m32, l32.requires_grad_(True), a32,
+                          1e-6)
+    with pytest.raises(TypeError):
+        K32.sum().backward()
     with pytest.raises(ValueError):
         tkr.gram_masked("rbf", x, mask.float(), ls, amp, 1e-6)
     with pytest.raises(ValueError):
         tkr.gram_masked("rbf", x.T.contiguous().T, mask, ls, amp, 1e-6)
+
+
+@pytest.mark.cuda
+def test_neg_mll_gram_route_matches_perdim_route_on_card(cuda):
+    """The fit's objective over 3 lanes at cap 256, d=8 on the card: through
+    the two kernels (dsq_perdim=None) against the per-dimension slab sum
+    under torch autograd, value and gradient, at the tolerances the CPU
+    holds the Gram route to against the JAX package."""
+    rng = np.random.default_rng(14)
+    x = rng.uniform(size=(230, 8))
+    y = -0.5 * np.sum(((x - 0.5) / 0.25) ** 2, axis=1)
+    y = y + 0.01 * rng.normal(size=230)
+    gp = tgp.GP(train_x=x, train_y=y, noise=1e-6, device=cuda)
+    assert gp.state.cap == 256
+    lps = torch.as_tensor(np.random.default_rng(15).uniform(
+        np.log(0.2), np.log(2.0), size=(3, 9)), device=cuda)
+    out = {}
+    for route, dsq in (("gram", None),
+                       ("perdim", tkr.sq_dist_perdim(gp.state.x))):
+        lp = lps.clone().requires_grad_(True)
+        before = tkr.gram_masked_backward.launches
+        v = tgp.neg_mll(gp.state, gp.cfg, lp, dsq_perdim=dsq)
+        (g,) = torch.autograd.grad(v.sum(), lp)
+        out[route] = (v.detach().cpu().numpy(), g.cpu().numpy())
+        assert tkr.gram_masked_backward.launches == before + (dsq is None)
+    np.testing.assert_allclose(out["gram"][0], out["perdim"][0], rtol=1e-9)
+    np.testing.assert_allclose(out["gram"][1], out["perdim"][1], rtol=1e-7,
+                               atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_fit_above_the_perdim_budget_on_card(cuda, monkeypatch):
+    """With the per-dimension budget at 0 the fit runs every objective
+    through the forward and backward kernels, and reaches the neg_mll of the
+    same fit on the CPU (plain versions) from the same x0 to 1e-7 relative.
+    The targets carry 1 % noise and the fit runs to its optimum, which is
+    then interior and well determined; short fits on noiseless targets end
+    at points that roundoff decides (ROADMAP queue 3)."""
+    monkeypatch.setattr(tgp, "PERDIM_MAX_BYTES", 0)
+    rng = np.random.default_rng(16)
+    x = rng.uniform(size=(60, 3))
+    y = -0.5 * np.sum(((x - 0.5) / 0.25) ** 2, axis=1)
+    y = y + 0.01 * rng.normal(size=60)
+    x0 = np.vstack([np.zeros(4),
+                    rng.uniform(np.log(0.05), np.log(3.0), size=(3, 4))])
+    fwd, bwd = tkr.gram_masked.launches, tkr.gram_masked_backward.launches
+    f_card = -tgp.GP(train_x=x, train_y=y, noise=1e-8, device=cuda).fit(
+        x0=x0, maxiter=100)["mll"]
+    assert tkr.gram_masked.launches > fwd
+    assert tkr.gram_masked_backward.launches > bwd
+    f_cpu = -tgp.GP(train_x=x, train_y=y, noise=1e-8, device="cpu").fit(
+        x0=x0, maxiter=100)["mll"]
+    assert abs(f_card - f_cpu) <= 1e-7 * abs(f_cpu), (f_card, f_cpu)

@@ -189,6 +189,51 @@ def test_fit_from_the_same_x0_is_not_worse_than_jax():
     assert tinfo["basins"][0][1] == pytest.approx(tf)
 
 
+def test_neg_mll_lanes_on_the_gram_route_match_jax_vmap():
+    """Above the per-dimension budget the fit's objective takes every lane's
+    Gram matrix from one gram_masked call and differentiates it through
+    GramMasked (here its plain versions): value and gradient over 3 lanes at
+    cap 256, d=8 against jax.vmap(jax.value_and_grad(neg_mll)) of the JAX
+    package on its own Gram route."""
+    x, y = _data(230, 8, seed=14)
+    y = y + 0.01 * np.random.default_rng(14).normal(size=y.shape)
+    jg = jgp.GP(train_x=x, train_y=y, noise=1e-6)
+    tg = tgp.GP(train_x=x, train_y=y, noise=1e-6, device="cpu")
+    assert tg.state.cap == 256
+    lps = np.random.default_rng(15).uniform(np.log(0.2), np.log(2.0),
+                                            size=(3, 9))
+    jv, jgrad = jax.vmap(jax.value_and_grad(
+        lambda lp: jgp.neg_mll(jg.state, jg.cfg, lp)))(jnp.asarray(lps))
+    tlp = torch.as_tensor(lps).requires_grad_(True)
+    tv = tgp.neg_mll(tg.state, tg.cfg, tlp, dsq_perdim=None)
+    (tgrad,) = torch.autograd.grad(tv.sum(), tlp)
+    np.testing.assert_allclose(_np(tv), _np(jv), rtol=RTOL)
+    np.testing.assert_allclose(_np(tgrad), _np(jgrad), rtol=1e-7, atol=1e-9)
+
+
+def test_fit_on_the_gram_route_matches_jax(monkeypatch):
+    """With the per-dimension budget at 0 every objective of the port's fit
+    goes through gram_masked and its backward. From the same x0 on 1 %-noise
+    targets it reaches the JAX package's neg_mll (whose own fit takes the
+    per-dimension route at this size) to 1e-7 relative. The same optimizer
+    runs on the same objective, but lanes retire on relative-ftol patience
+    at points that roundoff decides: the two endpoints were 2.3e-9 |f|
+    apart (the port's own per-dimension route: 1.2e-8)."""
+    monkeypatch.setattr(tgp, "PERDIM_MAX_BYTES", 0)
+    x, y = _data(60, 3, seed=16)
+    y = y + 0.01 * np.random.default_rng(16).normal(size=y.shape)
+    jg = jgp.GP(train_x=x, train_y=y, noise=1e-8)
+    tg = tgp.GP(train_x=x, train_y=y, noise=1e-8, device="cpu")
+    rng = np.random.default_rng(17)
+    x0 = np.vstack([np.zeros(4),
+                    rng.uniform(np.log(0.05), np.log(3.0), size=(3, 4))])
+    jf = -jg.fit(x0=jnp.asarray(x0), maxiter=100)["mll"]
+    before = tkr.gram_masked.launches
+    tf = -tg.fit(x0=x0, maxiter=100)["mll"]
+    assert tkr.gram_masked.launches == before  # plain versions on the CPU
+    assert abs(tf - jf) <= 1e-7 * abs(jf), (tf, jf)
+
+
 def test_state_from_numpy_and_npz_carry_state_both_ways(tmp_path):
     jg, _ = _pair(n=25, seed=10)
     jg.update(jnp.asarray([[0.3, 0.3]]), jnp.asarray([-0.9]))

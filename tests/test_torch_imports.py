@@ -46,7 +46,7 @@ def test_importing_the_port_adds_no_jax_module_and_builds_nothing():
         "added = sorted(m for m in set(sys.modules) - before\n"
         "               if m.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
         "                                      'sklearn', 'bobe_tpu'))\n"
-        "print(json.dumps({'added': added, 'lib': kr._LIB is not None,\n"
+        "print(json.dumps({'added': added, 'lib': bool(kr._LIBS),\n"
         "                  'built': bool(kr.build_info)}))\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

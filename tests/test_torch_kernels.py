@@ -8,8 +8,18 @@ kernel in interpret mode as tests/test_pallas.py runs it. Float64 stages are
 held to rtol 1e-9; the float32 comparison with the Pallas kernel to 2e-5,
 the tolerance of tests/test_pallas.py.
 
-The CUDA kernel itself runs only on a card: see tests/test_torch_cuda.py.
+The Gram build's backward (``GramMasked``) runs its plain version on a CPU
+tensor; it is held to ``torch.autograd`` through ``gram_masked_plain`` at
+rtol 1e-10 and to ``jax.vjp`` of the JAX package's ``gram_masked`` at rtol
+1e-9, each with an absolute floor of the same factor times
+sum_ij |G_ij dK_ij/dtheta| per component: the three sum the same terms in
+different orders (JAX and autograd through the |a|^2 + |b|^2 - 2ab
+distance), so a component that cancels to near 0 is only known to that
+scale.
+
+The CUDA kernels themselves run only on a card: see tests/test_torch_cuda.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -133,6 +143,98 @@ def test_gram_masked_on_cpu_uses_the_plain_version():
         tkr.gram_masked("cubic", _t(x), _t(mask), _t(ls), _t(amp), 1e-8)
 
 
+def _lanes(cap, n, d, lanes, seed):
+    """Inputs with pad rows, restart lanes of hyperparameters and a random,
+    non-symmetric cotangent G."""
+    x, mask, _, _ = _inputs(cap, n, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    ls = rng.uniform(0.1, 1.5, size=(lanes, d))
+    amp = rng.uniform(0.5, 3.0, size=lanes)
+    g = rng.normal(size=(lanes, cap, cap))
+    return x, mask, ls, amp, g
+
+
+@pytest.mark.parametrize("name", ["rbf", "matern"])
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("cap,d", [(128, 2), (128, 8), (128, 30),
+                                   (256, 2), (256, 8), (256, 30)])
+def test_gram_backward_plain_matches_autograd_and_jax(name, lanes, cap, d):
+    x, mask, ls, amp, g = _lanes(cap, int(0.7 * cap), d, lanes, cap + d)
+    noise = 1e-6
+    got_ls, got_amp = tkr.gram_masked_backward_plain(
+        name, _t(x), _t(mask), _t(ls), _t(amp), _t(g))
+    # per-component scale: sum_ij |G_ij dK_ij/dtheta| (dK/dtheta >= 0)
+    scale_ls, scale_amp = tkr.gram_masked_backward_plain(
+        name, _t(x), _t(mask), _t(ls), _t(amp), _t(np.abs(g)))
+
+    tls = _t(ls).requires_grad_(True)
+    tamp = _t(amp).requires_grad_(True)
+    K = tkr.gram_masked_plain(name, _t(x), _t(mask), tls, tamp, noise)
+    want_ls, want_amp = torch.autograd.grad(torch.sum(K * _t(g)), (tls, tamp))
+    for got, want, scale in ((got_ls, want_ls, scale_ls),
+                             (got_amp, want_amp, scale_amp)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                                   atol=1e-10 * float(scale.max()))
+
+    def build(l, a):
+        return jkr.gram_masked(name, jnp.asarray(x), jnp.asarray(mask), l, a,
+                               noise)
+
+    def lane_vjp(l, a, gr):
+        return jax.vjp(build, l, a)[1](gr)
+
+    jls, jamp = jax.vmap(lane_vjp)(jnp.asarray(ls), jnp.asarray(amp),
+                                   jnp.asarray(g))
+    for got, want, scale in ((got_ls, jls, scale_ls),
+                             (got_amp, jamp, scale_amp)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                                   atol=1e-9 * float(scale.max()))
+
+
+def test_gram_masked_plain_batches_over_lanes():
+    """The batched-lane plain forward: lane r equals the single build at
+    lane r's hyperparameters; every lane keeps the exact identity pad
+    block."""
+    n = 90
+    x, mask, ls, amp, _ = _lanes(128, n, 5, 4, seed=21)
+    batch = tkr.gram_masked_plain("matern", _t(x), _t(mask), _t(ls), _t(amp),
+                                  1e-6)
+    assert batch.shape == (4, 128, 128)
+    for r in range(4):
+        single = tkr.gram_masked_plain("matern", _t(x), _t(mask), _t(ls[r]),
+                                       _t(amp[r]), 1e-6)
+        np.testing.assert_allclose(batch[r].numpy(), single.numpy(),
+                                   rtol=1e-12, atol=1e-15)
+        np.testing.assert_array_equal(batch[r, n:, n:].numpy(),
+                                      np.eye(128 - n))
+
+
+def test_gram_masked_function_takes_the_plain_versions_on_cpu():
+    """On CPU tensors GramMasked runs the plain forward and the plain
+    backward: lanes in one call, gradients in ls and amp equal to the plain
+    backward's, no kernel launch counted; a gradient in x raises."""
+    x, mask, ls, amp, g = _lanes(128, 70, 3, 2, seed=22)
+    fwd, bwd = tkr.gram_masked.launches, tkr.gram_masked_backward.launches
+    tls = _t(ls).requires_grad_(True)
+    tamp = _t(amp).requires_grad_(True)
+    K = tkr.gram_masked("rbf", _t(x), _t(mask), tls, tamp, 1e-8)
+    assert K.shape == (2, 128, 128)
+    np.testing.assert_array_equal(
+        K.detach().numpy(),
+        tkr.gram_masked_plain("rbf", _t(x), _t(mask), _t(ls), _t(amp),
+                              1e-8).numpy())
+    gls, gamp = torch.autograd.grad(torch.sum(K * _t(g)), (tls, tamp))
+    want_ls, want_amp = tkr.gram_masked_backward_plain(
+        "rbf", _t(x), _t(mask), _t(ls), _t(amp), _t(g))
+    np.testing.assert_array_equal(gls.numpy(), want_ls.numpy())
+    np.testing.assert_array_equal(gamp.numpy(), want_amp.numpy())
+    assert (tkr.gram_masked.launches, tkr.gram_masked_backward.launches) \
+        == (fwd, bwd)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tkr.gram_masked("rbf", _t(x).requires_grad_(True), _t(mask),
+                        _t(ls[0]), _t(amp[0]), 1e-8)
+
+
 def test_kernel_library_is_not_built_at_import():
-    assert tkr._LIB is None
+    assert tkr._LIBS == {}
     assert tkr.build_info == {}

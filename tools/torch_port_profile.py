@@ -1,13 +1,16 @@
 """Where the time goes in the PyTorch port on one NVIDIA card.
 
-Profiles, with torch.profiler (CPU + CUDA activities), two workloads of
-chip_smoke.py's phase 5, built by chip_smoke's own functions, after one
-warm-up run of each:
+Profiles, with torch.profiler (CPU + CUDA activities), three workloads of
+chip_smoke.py's phases 5 and 6, built by chip_smoke's own functions, after
+one warm-up run of each:
 
 * ``fit1024``: phase 5a, GP.fit at N=1024, d=8 (bench.py's data and restart
   seeds, 4 restarts, 30 its);
 * ``ns1024``: phase 5d, one convergence-mode nested_sampling on that data
-  with the JAX package's fitted hyperparameters.
+  with the JAX package's fitted hyperparameters;
+* ``fit_d30``: phase 6, GP.fit at N=1200, d=30 (capacity 1280, above the
+  per-dimension budget: the Gram forward and backward kernels in every
+  objective; 4 restarts, 20 its).
 
 Each run gets a fresh GP, built outside the profiled window.
 
@@ -49,7 +52,11 @@ def _workloads():
         gp = cs.build_gp_1024("cuda", cs.JAX_LOG_PARAMS)
         return lambda: cs.run_ns_1024(gp, "cuda")
 
-    return {"fit1024": fit1024, "ns1024": ns1024}
+    def fit_d30():
+        gp, x0 = cs.build_fit_d30("cuda")
+        return lambda: gp.fit(x0=x0, maxiter=cs.MAXITER30)
+
+    return {"fit1024": fit1024, "ns1024": ns1024, "fit_d30": fit_d30}
 
 
 def profile(name, setup, top=8):

@@ -1,16 +1,20 @@
-"""Reference numbers of the JAX package for chip_smoke.py, phase 5.
+"""Reference numbers of the JAX package for chip_smoke.py, phases 5 and 6.
 
-Runs the JAX package (bobe_tpu) on the CPU on the N=1024, d=8 cell of
-bench.py (the same seed-0 Gaussian data):
+Runs the JAX package (bobe_tpu) on the CPU:
 
-1. ``GP(noise=1e-8).fit(x0, maxiter=30)`` from bench.py's restart seeds
-   (the current hyperparameters plus three seeded draws);
-2. one convergence-mode ``nested_sampling`` on a GP built from the fitted
-   log-hyperparameters.
+1. on the N=1024, d=8 cell of bench.py (the same seed-0 Gaussian data),
+   ``GP(noise=1e-8).fit(x0, maxiter=30)`` from bench.py's restart seeds (the
+   current hyperparameters plus three seeded draws), then one
+   convergence-mode ``nested_sampling`` on a GP built from the fitted
+   log-hyperparameters;
+2. on examples/gaussian_30d.py's target (d=30, sigma 0.12) at N=1200 seeded
+   uniform points with 1 % target noise (capacity 1280, above the fit's
+   per-dimension budget, so every objective rebuilds the Gram matrix),
+   ``GP(noise=1e-8).fit(x0, maxiter=20)`` from four seeded restarts.
 
-It prints the fitted log-hyperparameters, the fit's final negative MLL, and
-the NS logZ with its ``dlogz_sampler``; chip_smoke.py carries them as
-constants and holds the PyTorch port to them on the card.
+It prints one JSON line: the fitted log-hyperparameters, each fit's final
+negative MLL, and the NS logZ with its ``dlogz_sampler``; chip_smoke.py
+carries them as constants and holds the PyTorch port to them on the card.
 
     JAX_PLATFORMS=cpu python tools/torch_port_reference.py
 """
@@ -30,6 +34,8 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 N_TRAIN, NDIM, N_RESTARTS, MAXITER, SEED = 1024, 8, 4, 30, 0
+# the d=30 fit above the per-dimension budget (chip_smoke.py phase 6)
+N30, D30, SIGMA30, MAXITER30, SEED30 = 1200, 30, 0.12, 20, 30
 
 
 def make_data():
@@ -45,7 +51,20 @@ def make_data():
     return x, y, x0_extra
 
 
+def make_data_d30(make_gaussian):
+    """examples/gaussian_30d.py's target at N30 seeded uniform points, with
+    0.01 N(0, 1) target noise as bench.py adds, and the three extra restart
+    rows of the fit."""
+    loglike, _, _ = make_gaussian(D30, sigma=SIGMA30)
+    rng = np.random.default_rng(SEED30)
+    x = rng.uniform(size=(N30, D30))
+    y = np.array([loglike(p) for p in x]) + 0.01 * rng.normal(size=N30)
+    x0_extra = rng.uniform(np.log(0.05), np.log(3.0), size=(3, D30 + 1))
+    return x, y, x0_extra
+
+
 def main():
+    from bobe_tpu.models import toys
     from bobe_tpu.models.gp import GP
     from bobe_tpu.samplers import nested_sampling
     from bobe_tpu.utils.seed import set_global_seed
@@ -67,6 +86,14 @@ def main():
     _, logz, ok = nested_sampling(ns_gp, mode="convergence",
                                   rng=np.random.default_rng(1))
     t_ns = time.time() - t0
+
+    x30, y30, x0_extra30 = make_data_d30(toys.make_gaussian)
+    gp30 = GP(train_x=x30, train_y=y30, noise=1e-8)
+    x0_30 = np.vstack([np.log(np.asarray(gp30.get_hyperparams()))[None, :],
+                       x0_extra30])
+    t0 = time.time()
+    info30 = gp30.fit(x0=x0_30, maxiter=MAXITER30)
+    t_fit30 = time.time() - t0
     print(json.dumps({
         "jax": jax.__version__,
         "log_params": params.tolist(),
@@ -74,7 +101,10 @@ def main():
         "ns_success": bool(ok),
         "ns_logz": float(logz["mean"]),
         "ns_dlogz_sampler": float(logz["dlogz_sampler"]),
-        "cpu_seconds_fit": t_fit, "cpu_seconds_ns": t_ns}))
+        "cpu_seconds_fit": t_fit, "cpu_seconds_ns": t_ns,
+        "d30_fit_neg_mll": -float(info30["mll"]),
+        "d30_log_params": np.asarray(info30["params"]).tolist(),
+        "cpu_seconds_fit_d30": t_fit30}))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,83 @@
+"""Tile size of the Gram kernels: device time with 32x32 and 64x64 tiles.
+
+Builds the kernels' library twice through ``kernels.build_library(tile)``,
+with output tiles of 32x32 and of 64x64 (the shipped size), and times the
+forward and the backward of each build at the main path's shapes on one
+card: device time from chip_smoke.py's CUDA graph of back-to-back launches,
+builds in turns (64, 32, 32, 64) within one process. Each build's forward
+must equal the first's bit for bit, and its backward agree to 1e-10 of the
+largest gradient component (the sums run in another order).
+
+    python tools/torch_port_tile_sweep.py
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+TILES = (64, 32, 32, 64)
+SHAPES = ((128, 2), (128, 8), (1024, 8), (1280, 8), (2048, 8), (1280, 30))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("torch_port_tile_sweep: no CUDA device visible",
+              file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from bobe_tpu_torch.ops import kernels as kr
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    for tile in sorted(set(TILES)):
+        kr.build_library(tile)
+        regs = [ln.split(":", 1)[1].strip()
+                for ln in kr.build_info["log"].splitlines()
+                if "registers" in ln]
+        print(f"tile {tile}: ptxas {regs}")
+    dev = torch.device("cuda")
+    for cap, d in SHAPES:
+        for lanes in (1, 4):
+            x, mask, ls, amp, noise, _ = cs._inputs(
+                cap, d, cap + lanes, torch.float64, dev, lanes)
+            g = torch.as_tensor(np.random.default_rng(cap).normal(
+                size=(lanes, cap, cap)), device=dev)
+            ref, row = None, []
+            for tile in TILES:
+                k_out = torch.empty((lanes, cap, cap), dtype=torch.float64,
+                                    device=dev)
+                scratch = torch.empty(
+                    kr.backward_scratch_size(cap, d, lanes, tile),
+                    dtype=torch.float64, device=dev)
+                g_ls = torch.empty((lanes, d), dtype=torch.float64,
+                                   device=dev)
+                g_amp = torch.empty((lanes,), dtype=torch.float64,
+                                    device=dev)
+                t_f = cs._device_ms(lambda: kr.launch_forward(
+                    "rbf", x, mask, ls, amp, noise, k_out, tile))
+                t_b = cs._device_ms(lambda: kr.launch_backward(
+                    "rbf", x, mask, ls, amp, g, scratch, g_ls, g_amp, tile))
+                if ref is None:
+                    ref = (k_out.clone(), g_ls.clone())
+                elif not torch.equal(k_out, ref[0]) or float(
+                        (g_ls - ref[1]).abs().max()
+                        / ref[1].abs().max()) > 1e-10:
+                    raise AssertionError(f"tile {tile} cap={cap} d={d}: "
+                                         "results differ")
+                row.append(f"t{tile} fwd {t_f * 1e3:.2f} us bwd "
+                           f"{t_b * 1e3:.2f} us")
+            print(f"cap={cap} d={d} lanes={lanes}: " + " | ".join(row),
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
