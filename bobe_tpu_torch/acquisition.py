@@ -232,12 +232,28 @@ def get_mc_samples(gp, warmup_steps=None, num_samples=1024, thinning=None,
                    warm_state=None):
     """MC samples of the GP surrogate posterior.
 
+    'EHMC' -> the lockstep ensemble HMC (64 chains); 'NUTS' -> NUTS chains;
     'NS' -> batched nested sampling (acq settings); 'uniform' -> scrambled
-    Sobol in the unit cube. 'EHMC' and 'NUTS' are not ported yet."""
+    Sobol in the unit cube. ``warmup_steps`` / ``thinning`` / ``num_chains``
+    left None take each sampler's own defaults (NUTS: dimension-scaled
+    warmup, thinning 4, 4 chains; EHMC: 64 chains, a short cold warmup,
+    thinning 2); explicit values reach whichever sampler runs.
+    ``warm_state``: an earlier NUTS/EHMC call's adapted kernel."""
     if method == "EHMC":
-        raise config.not_ported("mc_points_method='EHMC'", "ehmc")
+        from .samplers import sample_gp_ensemble
+
+        return sample_gp_ensemble(gp, num_samples=num_samples,
+                                  num_chains=num_chains or 64,
+                                  warmup_steps=warmup_steps,
+                                  thinning=thinning, np_rng=np_rng,
+                                  generator=generator, warm_state=warm_state)
     if method == "NUTS":
-        raise config.not_ported("mc_points_method='NUTS'", "nuts")
+        from .samplers import sample_gp_nuts
+
+        return sample_gp_nuts(gp, warmup_steps=warmup_steps,
+                              num_samples=num_samples, thinning=thinning,
+                              num_chains=num_chains or 4, np_rng=np_rng,
+                              generator=generator, warm_state=warm_state)
     if method == "NS":
         from .samplers import nested_sampling
 

@@ -4,25 +4,27 @@ Counterpart of ``bobe_tpu/bo.py``: construct with a likelihood, call
 ``run()`` and receive logZ + posterior samples computed on a GP surrogate
 that is actively refined by evidence-weighted acquisition.
 
-The port runs the WIPV/WIPStd loop with an NS or uniform MC pool:
+The port runs the WIPV/WIPStd loop with an EHMC (the default), NUTS, NS or
+uniform MC pool:
 
 * initial design = scrambled Sobol (+ user points), deduped, scaled to the
   unit cube;
 * adaptive refit schedule by training-set size;
 * WIP loop: greedy batches, the MC-pool refresh overlapped with the
-  likelihood batch on a thread, NS-on-schedule with the logZ-bound
-  convergence delta = (upper - lower) / 2 < threshold for
+  likelihood batch on a thread (an EHMC/NUTS refresh re-warms from the
+  previous one's adapted kernel, ``warm_state``), NS-on-schedule with the
+  logZ-bound convergence delta = (upper - lower) / 2 < threshold for
   ``convergence_n_iters`` successive checks, then a final-precision merged
   NS pass;
+* without a successful NS in the run, final posterior samples from NUTS;
 * the results dict and the result files of the JAX package.
 
 The GP state lives on ``device`` (``config.get_device()``, cuda, by default;
 without a card the constructor raises unless given ``device="cpu"``);
 likelihood evaluations run on the host through the evaluation pool. Every
-branch the port has not reached yet (EI/LogEI, the EHMC/NUTS pools, the
-classifier GP, dynamic final NS, resume, Cobaya, the server, the
-multiprocess/distributed pools) raises ``NotImplementedError`` naming its
-ROADMAP item.
+branch the port has not reached yet (EI/LogEI, the classifier GP, dynamic
+final NS, resume, Cobaya, the server, the multiprocess/distributed pools)
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,9 +48,13 @@ from .utils.seed import get_numpy_rng, new_torch_generator, set_global_seed
 log = get_logger("bo")
 
 _ACQ_FUNCS = {"wipv": WIPV, "wipstd": WIPStd}
-_MC_METHODS = {"EHMC": "ehmc", "NUTS": "nuts"}
+_MC_METHODS = ("EHMC", "NUTS", "NS", "uniform")
 # largest nlive multiplier of the final-precision NS pass (see _ns_boost)
 NS_BOOST_CAP = 16
+# the final NUTS samples of a run without a successful NS: 4 chains, 512
+# warmup transitions, 2000 transitions per dimension, every 4th kept
+FINAL_NUTS = {"num_chains": 4, "warmup_steps": 512, "samples_per_dim": 2000,
+              "thinning": 4}
 
 
 class BOBE:
@@ -363,10 +369,7 @@ class BOBE:
             if a.lower() not in _ACQ_FUNCS:
                 raise ValueError(f"Invalid acquisition '{a}'; options: "
                                  f"{list(_ACQ_FUNCS) + ['ei', 'logei']}")
-        if mc_points_method in _MC_METHODS:
-            raise config.not_ported(f"mc_points_method='{mc_points_method}'",
-                                    _MC_METHODS[mc_points_method])
-        if mc_points_method not in ("NS", "uniform"):
+        if mc_points_method not in _MC_METHODS:
             raise ValueError(f"Unknown MC sample method '{mc_points_method}'")
         if do_final_ns:
             raise config.not_ported("do_final_ns (the final dynamic NS)",
@@ -440,7 +443,12 @@ class BOBE:
                 np_rng=np_rng if np_rng is not None else self.np_rng,
                 generator=(generator if generator is not None
                            else new_torch_generator(self.device)),
-                method=self.mc_points_method)
+                method=self.mc_points_method,
+                warm_state=getattr(self, "_nuts_warm", None))
+            # the adapted EHMC/NUTS kernel: the next refresh re-warms from
+            # it (a short fixed-mass step-size re-adaptation) instead of a
+            # full warmup against a barely changed surrogate posterior
+            self._nuts_warm = self.mc_samples.get("warm_state")
         finally:
             self.results_manager.end_timing(phase)
 
@@ -579,15 +587,28 @@ class BOBE:
                         f"{k}={logz_dict[k]:.4f}"
                         for k in logz_keys if k in logz_dict))
 
-        if self.ns_samples is None or not ns_success:
-            raise config.not_ported(
-                "The NUTS final-sample fallback (no successful NS in the run)",
-                "nuts")
-        samples = scale_from_unit(np.asarray(self.ns_samples["x"]),
-                                  self.loglikelihood.param_bounds)
-        self.samples_dict = {"x": samples,
-                             "weights": np.asarray(self.ns_samples["weights"]),
-                             "logl": np.asarray(self.ns_samples["logl"])}
+        if self.ns_samples is not None and ns_success:
+            samples = self.ns_samples["x"]
+            weights = self.ns_samples["weights"]
+            loglikes = self.ns_samples["logl"]
+        else:
+            log.info("No successful NS results; falling back to NUTS samples")
+            self.results_manager.start_timing("MCMC Sampling")
+            mc = get_mc_samples(self.gp, method="NUTS",
+                                num_chains=FINAL_NUTS["num_chains"],
+                                warmup_steps=FINAL_NUTS["warmup_steps"],
+                                num_samples=(FINAL_NUTS["samples_per_dim"]
+                                             * self.ndim),
+                                thinning=FINAL_NUTS["thinning"],
+                                np_rng=self.np_rng,
+                                generator=new_torch_generator(self.device))
+            self.results_manager.end_timing("MCMC Sampling")
+            samples, loglikes = mc["x"], mc["logp"]
+            weights = np.ones(samples.shape[0])
+        self.samples_dict = {
+            "x": scale_from_unit(np.asarray(samples),
+                                 self.loglikelihood.param_bounds),
+            "weights": np.asarray(weights), "logl": np.asarray(loglikes)}
 
     def run_WIPStd(self, ii: int = 0):
         return self.run_weighted_integrated_posterior(WIPStd, ii)

@@ -70,18 +70,16 @@ PREDICT_CHUNK = 16384
 
 # Work that the port has not reached yet, by its ROADMAP.md queue-1 entry.
 ROADMAP_ITEMS = {
-    "ehmc": "1. EHMC MC pool (mc_points_method='EHMC', the default)",
-    "nuts": "2. NUTS and the final-sample NUTS fallback",
-    "dynamic_ns": "3. dynamic NS / do_final_ns",
-    "ei": "4. EI/LogEI",
-    "clf": "5. classifier path (use_clf)",
-    "gp_options": "6. SAAS/DSLP priors and the input warp (with the Gram "
+    "dynamic_ns": "1. dynamic NS / do_final_ns",
+    "ei": "2. EI/LogEI",
+    "clf": "3. classifier path (use_clf)",
+    "gp_options": "4. SAAS/DSLP priors and the input warp (with the Gram "
                   "kernel's gradient in x)",
-    "gram_backward": "7. rectangular masked K(X, Xq) kernel",
-    "resume": "8. resume and plots",
-    "cobaya": "9. Cobaya",
-    "pools": "10. Multiprocess/Distributed pools and multi-GPU",
-    "server": "11. server",
+    "rect_gram": "5. rectangular masked K(X, Xq) kernel",
+    "resume": "6. resume and plots",
+    "cobaya": "7. Cobaya",
+    "pools": "8. Multiprocess/Distributed pools and multi-GPU",
+    "server": "9. server",
 }
 
 

@@ -236,6 +236,60 @@ def predict_mean(state: GPState, cfg: GPTrainConfig, xq):
     return (K12.T @ state.alpha) * state.y_std + state.y_mean
 
 
+def mean_value_and_grad_fn(state: GPState, cfg: GPTrainConfig):
+    """``f(xq) -> (mean (m,), grad (m, d))``: the physical-scale posterior
+    mean at xq (m, d) and its gradient in xq, in closed form from one
+    (cap, m) cross-kernel block. What does not depend on xq is computed
+    once, here: the samplers call ``f`` on every leapfrog step, where
+    autograd would build a graph per step.
+
+    With c_i = alpha_i amp m_i (m_i the pad mask) the mean is
+    sum_i c_i corr(r_i) and its gradient sum_i w_i (x_i - x) / l^2, both
+    times y_std: RBF w_i = c_i exp(-r_i^2/2), Matern-5/2
+    w_i = c_i (5/3)(1 + sqrt5 r_i) exp(-sqrt5 r_i)."""
+    if cfg.kernel not in ("rbf", "matern"):
+        raise ValueError(f"Unknown kernel '{cfg.kernel}'")
+    ls, amp = torch.exp(state.log_ls), torch.exp(state.log_amp)
+    x_tr = state.x
+    xs_tr = x_tr / ls
+    a2 = torch.sum(xs_tr * xs_tr, dim=-1)[:, None]
+    coef = (state.alpha * amp * state.mask())[:, None]
+    gfac = state.y_std / (ls * ls)
+    # one host read here saves a launch per call below
+    y_std = float(state.y_std)
+    y_mean = state.y_mean
+    rbf = cfg.kernel == "rbf"
+    if rbf:
+        a2 = -0.5 * a2
+
+    def f(xq):
+        xq_s = xq / ls
+        b2 = torch.linalg.vecdot(xq_s, xq_s)[None, :]
+        if rbf:
+            # exp(-dsq/2) with dsq = a2 + b2 - 2 ab, clamped at 0
+            w = torch.exp(torch.clamp(
+                torch.addmm(a2 - 0.5 * b2, xs_tr, xq_s.T), max=0.0)) * coef
+            s = sw = torch.sum(w, dim=0)
+        else:
+            dsq = torch.clamp(torch.addmm(a2 + b2, xs_tr, xq_s.T, alpha=-2.0),
+                              min=0.0)
+            r = torch.sqrt(torch.clamp(dsq, min=1e-30))
+            e = torch.exp(-kr.SQRT5 * r) * coef
+            s = torch.sum((1.0 + kr.SQRT5 * r + (5.0 / 3.0) * dsq) * e, dim=0)
+            w = (5.0 / 3.0) * (1.0 + kr.SQRT5 * r) * e
+            sw = torch.sum(w, dim=0)
+        grad = torch.addcmul(w.T @ x_tr, sw[:, None], xq, value=-1.0) * gfac
+        return torch.add(y_mean, s, alpha=y_std), grad
+
+    return f
+
+
+def predict_mean_value_and_grad(state: GPState, cfg: GPTrainConfig, xq):
+    """Physical-scale posterior mean at xq (m, d) and its gradient in xq
+    (m, d); see :func:`mean_value_and_grad_fn`."""
+    return mean_value_and_grad_fn(state, cfg)(xq)
+
+
 def predict(state: GPState, cfg: GPTrainConfig, xq):
     """Physical-scale (mean, var) at xq (m, d)."""
     mean, var = predict_raw(state, cfg, xq)

@@ -1,10 +1,20 @@
-"""Surrogate samplers: nested sampling over the GP mean.
+"""Surrogate samplers: nested sampling, NUTS and ensemble HMC over the GP
+mean.
 
-Counterpart of ``bobe_tpu/samplers.py`` in its static mode:
-``nested_sampling(gp, mode=...)`` runs the batched sampler of
-infer/nested.py with the GP mean as the likelihood and returns the evidence
-with its GP-sigma bounds, the sampler error, and the hyperparameter-basin
-spread. NUTS and the ensemble HMC refresh are not ported yet.
+Counterpart of ``bobe_tpu/samplers.py``:
+
+* ``nested_sampling(gp, mode=...)`` (static mode) runs the batched sampler
+  of infer/nested.py with the GP mean as the likelihood and returns the
+  evidence with its GP-sigma bounds, the sampler error, and the
+  hyperparameter-basin spread;
+* ``sample_gp_ensemble`` (infer/ehmc.py, the BO loop's default MC-pool
+  refresh) and ``sample_gp_nuts`` (infer/nuts.py, the final-sample
+  fallback) sample the GP-mean posterior on the logit-transformed unit cube
+  and return the JAX package's samples dict, whose ``warm_state`` (numpy
+  arrays) seeds the next call of either package.
+
+The multi-device chain layout of the JAX package (``_maybe_shard_chains``,
+``_mesh_aligned_chains``) is not ported: the chain count is used as given.
 """
 from __future__ import annotations
 
@@ -15,7 +25,9 @@ import torch
 
 from . import config
 from .infer import integrals
+from .infer.ehmc import run_ensemble
 from .infer.nested import merge_runs, run_nested
+from .infer.nuts import run_chain
 from .models import gp as gpm
 from .utils.core import renormalise_log_weights, resample_equal
 from .utils.log import get_logger
@@ -245,9 +257,194 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
     return samples_dict, logz_dict, success
 
 
-def sample_gp_nuts(*args, **kwargs):
-    raise config.not_ported("NUTS sampling of the GP surrogate", "nuts")
 
 
-def sample_gp_ensemble(*args, **kwargs):
-    raise config.not_ported("The ensemble HMC (EHMC) MC-pool refresh", "ehmc")
+# ----------------------------------------------------------------------- MCMC
+
+def get_hmc_settings(ndim, warmup_steps=None, num_samples=None, thinning=None):
+    """(warmup_steps, num_samples, thinning) for NUTS, by dimension."""
+    warmup_steps = warmup_steps if warmup_steps is not None else (256 if ndim <= 9 else 512)
+    num_samples = num_samples if num_samples is not None else (1024 if ndim <= 9 else 2048)
+    thinning = thinning if thinning is not None else 4
+    return warmup_steps, num_samples, thinning
+
+
+def _logprob_vg(gp, temp: float):
+    """``vg(z) -> (logp (C,), grad (C, d))``: the target density on R^d,
+    the logit-transformed Uniform(0, 1)^d prior plus the tempered GP mean,
+    with its gradient in closed form (models/gp.mean_value_and_grad_fn)."""
+    if getattr(gp, "_clf_ctx", None) is not None:
+        raise config.not_ported("The classifier-gated surrogate", "clf")
+    mean_vg = gpm.mean_value_and_grad_fn(gp.state, gp.cfg)
+    temp = float(temp)
+    softplus = torch.nn.functional.softplus
+
+    def vg(z):
+        nz = -z
+        x, x_neg = torch.sigmoid(z), torch.sigmoid(nz)
+        mean, g = mean_vg(x)
+        # log|dx/dz| = -(softplus(z) + softplus(-z)): finite where the
+        # sigmoid saturates (log(x) + log1p(-x) is not); its gradient is
+        # sigmoid(-z) - sigmoid(z), and dx/dz = x sigmoid(-z)
+        log_jac = torch.sum(softplus(z) + softplus(nz), dim=-1)
+        return (mean / temp - log_jac,
+                torch.addcmul(x_neg - x, g, x * x_neg, value=1.0 / temp))
+
+    return vg
+
+
+def _cold_logit_inits(gp, num_chains, np_rng):
+    """Chain starts: random points plus the incumbent, in logit space."""
+    inits = [gp.get_random_point(rng=np_rng)
+             for _ in range(max(0, num_chains - 1))]
+    best_x = gp.train_x[int(torch.argmax(gp.train_y))].cpu().numpy()
+    inits.append(best_x)
+    inits = np.clip(np.asarray(inits[:num_chains]), 1e-6, 1 - 1e-6)
+    return torch.as_tensor(np.log(inits) - np.log1p(-inits),
+                           dtype=config.DTYPE, device=gp.device)
+
+
+def _warm_state_matches(warm_state, kind, num_chains, ndim, dense_mass, temp,
+                        default_kind=None) -> bool:
+    """Kernel reuse needs the same sampler, shapes and temperature: a kernel
+    adapted to a differently tempered target would pass the acceptance
+    guard while carrying burn-in bias."""
+    return (warm_state is not None
+            and warm_state.get("kind", default_kind) == kind
+            and warm_state.get("num_chains") == num_chains
+            and warm_state.get("ndim") == ndim
+            and warm_state.get("dense_mass") == bool(dense_mass)
+            and warm_state.get("temp") == float(temp))
+
+
+def _warm_kernel_tuple(warm_state, device):
+    return tuple(torch.as_tensor(np.array(warm_state[k]), dtype=config.DTYPE,
+                                 device=device)
+                 for k in ("step_size", "mass_inv", "mass_chol"))
+
+
+def _bundle_samples(gp, zs, diag, kind, num_chains, dense_mass, temp) -> Dict:
+    """The samples dict of the JAX package (x / logp / best / method,
+    diagnostics, warm_state), in numpy. 'logp' is the untempered GP mean at
+    the samples."""
+    xs_t = torch.sigmoid(zs.reshape(-1, gp.ndim))
+    xs = xs_t.cpu().numpy()
+    logp = gp.predict_mean_batched(xs_t).cpu().numpy()
+    np_ = lambda v: v.cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+    return {"x": xs, "logp": logp, "best": xs[np.argmax(logp)],
+            "method": "MCMC",
+            "diagnostics": {k: np_(diag[k]) for k in
+                            ("mean_accept", "n_divergent", "step_size")},
+            "warm_state": {**{k: np_(diag[k]) for k in
+                              ("step_size", "mass_inv", "mass_chol", "last_z")},
+                           "kind": kind, "num_chains": num_chains,
+                           "ndim": gp.ndim, "dense_mass": bool(dense_mass),
+                           "temp": float(temp)}}
+
+
+def sample_gp_nuts(gp, np_rng=None, generator: Optional[torch.Generator] = None,
+                   num_chains: int = 4, temp: float = 1.0,
+                   dense_mass: bool = True, max_tree_depth: int = 6,
+                   warm_state: Optional[Dict] = None, **kwargs) -> Dict:
+    """NUTS samples of the GP-mean posterior (infer/nuts.py); returns the
+    samples dict (x / logp / best / method / diagnostics / warm_state).
+
+    ``warm_state`` (an earlier call's entry, from either package): reuse the
+    adapted per-chain step size and mass and continue from the chain ends,
+    with a short fixed-mass step-size re-adaptation instead of the full
+    windowed warmup. If the warm run's acceptance collapses or divergences
+    appear it is discarded for a cold run. ``generator``: the torch
+    generator of the call; each chain draws from a child of it."""
+    warmup_steps, num_samples, thinning = get_hmc_settings(
+        ndim=gp.ndim, **{k: v for k, v in kwargs.items()
+                         if k in ("warmup_steps", "num_samples", "thinning")})
+    num_chains = int(num_chains)
+    np_rng = np_rng if np_rng is not None else get_numpy_rng()
+    gen = generator if generator is not None else new_torch_generator(gp.device)
+    vg = _logprob_vg(gp, temp)
+    gens = split_generator(gen, num_chains)
+    # default_kind="nuts": warm states without a 'kind' field are NUTS's
+    warm_ok = _warm_state_matches(warm_state, "nuts", num_chains, gp.ndim,
+                                  dense_mass, temp, default_kind="nuts")
+    common = dict(num_samples=int(num_samples), thinning=int(thinning),
+                  dense_mass=bool(dense_mass), max_depth=int(max_tree_depth))
+    if warm_ok:
+        z0 = torch.as_tensor(np.array(warm_state["last_z"]),
+                             dtype=config.DTYPE, device=gp.device)
+        zs, _, diag = run_chain(vg, z0, gens,
+                                num_warmup=max(32, int(warmup_steps) // 4),
+                                warm=_warm_kernel_tuple(warm_state, gp.device),
+                                adapt_mass=False, **common)
+        accept = float(torch.mean(diag["mean_accept"]))
+        div_rate = float(torch.sum(diag["n_divergent"])) / max(
+            1, num_chains * int(num_samples))
+        if accept < 0.6 or div_rate > 0.05:
+            log.debug(f"warm NUTS rejected (accept={accept:.2f}, "
+                      f"div={div_rate:.3f}); falling back to cold warmup")
+            warm_ok = False
+    if not warm_ok:
+        zs, _, diag = run_chain(vg, _cold_logit_inits(gp, num_chains, np_rng),
+                                gens, num_warmup=int(warmup_steps), **common)
+    out = _bundle_samples(gp, zs, diag, "nuts", num_chains, dense_mass, temp)
+    out["diagnostics"].update(n_leapfrog=diag["n_leapfrog"], warm=warm_ok)
+    log.debug(f"NUTS: mean accept="
+              f"{np.mean(out['diagnostics']['mean_accept']):.3f}, divergences="
+              f"{int(np.sum(out['diagnostics']['n_divergent']))}")
+    return out
+
+
+def get_ehmc_settings(ndim, num_chains=None, num_samples=None, warmup_steps=None):
+    """(num_chains, kept_per_chain, cold_warmup) for the ensemble refresh;
+    ``num_samples`` is the total pool size."""
+    num_chains = int(num_chains) if num_chains else 64
+    total = int(num_samples) if num_samples else (1024 if ndim <= 9 else 2048)
+    kept = max(4, -(-total // num_chains))
+    cold_warmup = int(warmup_steps) if warmup_steps else (128 if ndim <= 9 else 256)
+    return num_chains, kept, cold_warmup
+
+
+def sample_gp_ensemble(gp, np_rng=None,
+                       generator: Optional[torch.Generator] = None,
+                       num_chains: int = 64, temp: float = 1.0,
+                       dense_mass: bool = True, num_leapfrog: int = 16,
+                       warm_state: Optional[Dict] = None, **kwargs) -> Dict:
+    """MC-pool refresh by the lockstep chain ensemble (infer/ehmc.py), the
+    BO loop's default; the samples dict of :func:`sample_gp_nuts`.
+
+    With a matching ``warm_state`` the previous refresh's chain ends, step
+    size and mass seed a 24-transition fixed-mass re-adaptation; an
+    acceptance below 0.5 or a divergence rate above 0.05 rejects it for a
+    cold start (random points and the incumbent, the full warmup)."""
+    nc, kept, cold_warmup = get_ehmc_settings(
+        gp.ndim, num_chains=num_chains, num_samples=kwargs.get("num_samples"),
+        warmup_steps=kwargs.get("warmup_steps"))
+    thinning = int(kwargs.get("thinning") or 2)
+    np_rng = np_rng if np_rng is not None else get_numpy_rng()
+    gen = generator if generator is not None else new_torch_generator(gp.device)
+    vg = _logprob_vg(gp, temp)
+    common = dict(num_samples=kept, thinning=thinning,
+                  dense_mass=bool(dense_mass), num_leapfrog=int(num_leapfrog))
+    warm_ok = _warm_state_matches(warm_state, "ehmc", nc, gp.ndim,
+                                  dense_mass, temp)
+    if warm_ok:
+        z0 = torch.as_tensor(np.array(warm_state["last_z"]),
+                             dtype=config.DTYPE, device=gp.device)
+        zs, _, diag = run_ensemble(
+            vg, z0, gen, num_warmup=24,
+            warm=_warm_kernel_tuple(warm_state, gp.device), adapt_mass=False,
+            **common)
+        accept = float(diag["mean_accept"])
+        div_rate = float(diag["n_divergent"]) / max(1, nc * kept * thinning)
+        if accept < 0.5 or div_rate > 0.05:
+            log.debug(f"warm ensemble rejected (accept={accept:.2f}, "
+                      f"div={div_rate:.3f}); cold restart")
+            warm_ok = False
+    if not warm_ok:
+        zs, _, diag = run_ensemble(vg, _cold_logit_inits(gp, nc, np_rng), gen,
+                                   num_warmup=cold_warmup, **common)
+    out = _bundle_samples(gp, zs, diag, "ehmc", nc, dense_mass, temp)
+    out["diagnostics"].update(n_leapfrog=diag["n_leapfrog"], warm=warm_ok)
+    log.debug(f"EHMC: accept={float(out['diagnostics']['mean_accept']):.3f}, "
+              f"divergences={int(out['diagnostics']['n_divergent'])}")
+    return out

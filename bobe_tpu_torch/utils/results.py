@@ -102,6 +102,7 @@ class BOBEResults:
         # timing
         self._phase_times = {p: 0.0 for p in PHASES}
         self._phase_starts: Dict[str, float] = {}
+        self._phase_last: Dict[str, float] = {}  # seconds of the last span
         self._t0 = time.time()
 
         self._resumed = False
@@ -125,7 +126,13 @@ class BOBEResults:
     def end_timing(self, phase: str):
         t0 = self._phase_starts.pop(phase, None)
         if t0 is not None:
-            self._phase_times[phase] = self._phase_times.get(phase, 0.0) + time.time() - t0
+            dt = time.time() - t0
+            self._phase_times[phase] = self._phase_times.get(phase, 0.0) + dt
+            self._phase_last[phase] = dt
+
+    def last_timing(self, phase: str) -> float:
+        """Seconds of the phase's most recent span (0 if it never ran)."""
+        return self._phase_last.get(phase, 0.0)
 
     def get_timing_summary(self) -> Dict[str, Any]:
         total = time.time() - self._t0

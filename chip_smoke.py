@@ -24,10 +24,19 @@ non-zero):
    the JAX package's logZ for the same GP state;
 6. a GP fit above the per-dimension budget: examples/gaussian_30d.py's
    target at N=1200 (capacity 1280, d=30), whose every objective runs the
-   forward and backward kernels, checked against the JAX package's neg_mll.
+   forward and backward kernels, checked against the JAX package's neg_mll;
+7. phase 4's banana run with BOBE's own default MC pool (ensemble HMC), to
+   convergence;
+8. the MCMC MC pools at N=1024, d=8 (phase 5's GP with the JAX package's
+   fitted hyperparameters): a cold ensemble-HMC pool, a warm one from its
+   warm_state and a NUTS pool, each timed, their moments held to each other
+   and to the JAX package's; the device launches per leapfrog step (the
+   target's mean and gradient included) under torch.profiler;
+9. the final NUTS samples of a banana run that ends before any nested
+   sampling (min_evals > max_evals), timed.
 
-The kernels' launch counts are set to 0 just before each of phases 4, 5 and
-6 and read just after; a phase that did not launch the forward kernel, or
+The kernels' launch counts are set to 0 just before each of phases 4 to 9
+and read just after; a phase that did not launch the forward kernel, or
 phase 6 without a backward launch, fails. The script prints the card's name
 and power limit, one JSON line describing every kernel, and as its last
 line {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -85,6 +94,25 @@ N30, D30, SIGMA30, MAXITER30, SEED30 = 1200, 30, 0.12, 20, 30
 JAX_D30_FIT_NEG_MLL = 1163.7814835559184
 # relative tolerance of the phase 6 neg_mll against the JAX package's
 D30_RTOL = 1e-6
+
+# ---- phase 8 reference of the JAX package, printed by the same tool: the
+# per-dimension mean and standard deviation of a cold sample_gp_ensemble
+# pool (512 samples) and of a sample_gp_nuts pool (4 chains, warmup 256, 512
+# samples, thinning 2) on the GP of JAX_LOG_PARAMS
+JAX_EHMC_MEAN = [0.49689276521331077, 0.49992078518869887, 0.5026468349295888,
+                 0.5058199736480079, 0.49432114680117245, 0.49324801288730546,
+                 0.4895336585496192, 0.5002222706616333]
+JAX_EHMC_STD = [0.18114628620139656, 0.19404535877444337, 0.21017862972514154,
+                0.19324592531417206, 0.19660617844530096, 0.18766265909526253,
+                0.1894011842826286, 0.1803458941836067]
+JAX_NUTS_MEAN = [0.4920547566236123, 0.5094304892436333, 0.507352506457011,
+                 0.48289516284997397, 0.4986943389606279, 0.49619707734752994,
+                 0.5155613369767995, 0.5028815084709358]
+JAX_NUTS_STD = [0.18524113815603163, 0.1909502709413334, 0.19631888962349942,
+                0.1895987590759816, 0.19127804621505665, 0.1844431483566775,
+                0.1982995888963466, 0.18779876025205416]
+# largest difference of a pool's per-dimension mean or std from another's
+POOL_ATOL = 0.05
 
 
 def _sync():
@@ -360,14 +388,18 @@ def _state_on(gp, device_type):
                for t in (st.x, st.y_raw, st.chol, st.alpha, st.log_ls))
 
 
-def phase_slice(device):
-    """The slice end to end on the banana toy (tests/test_bo_2d.py's
-    settings, with an NS-mode MC pool)."""
-    import numpy as np
+def _banana_run(device, **run_kw):
+    """BOBE on the banana toy at tests/test_bo_2d.py's settings; ``run_kw``
+    overrides run()'s arguments. Returns (results, wall seconds)."""
+    import os
 
     from bobe_tpu_torch.bo import BOBE
     from bobe_tpu_torch.models import toys
 
+    kw = dict(acq="wipstd", min_evals=16, max_evals=160, max_gp_size=200,
+              logz_threshold=0.05, batch_size=4, fit_n_points=4,
+              ns_n_points=8)
+    kw.update(run_kw)
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         bobe = BOBE(toys.banana, param_list=toys.banana_names,
@@ -375,33 +407,45 @@ def phase_slice(device):
                     likelihood_name="banana_smoke", n_sobol_init=8, seed=7,
                     pool="serial", device=device, save_dir=tmp,
                     verbosity="WARNING")
-        res = bobe.run(acq="wipstd", mc_points_method="NS", min_evals=16,
-                       max_evals=160, max_gp_size=200, logz_threshold=0.05,
-                       batch_size=4, fit_n_points=4, ns_n_points=8)
-        import os
-
+        res = bobe.run(**kw)
         for suffix in ("_results.pkl", ".txt", "_stats.json", "_timing.json"):
             if not os.path.exists(os.path.join(tmp, "banana_smoke" + suffix)):
-                raise AssertionError(f"phase 4: result file {suffix} missing")
-    wall = time.time() - t0
+                raise AssertionError(f"banana run: result file {suffix} "
+                                     "missing")
+    if not _state_on(res["gp"], device.split(":")[0]):
+        raise AssertionError("banana run: GP state is not on the device")
+    return res, time.time() - t0
+
+
+def phase_slice(device, label="4", **run_kw):
+    """The slice end to end on the banana toy (tests/test_bo_2d.py's
+    settings): phase 4 with an NS-mode MC pool, phase 7 with run()'s own
+    default pool (ensemble HMC)."""
+    import numpy as np
+
+    res, wall = _banana_run(device, **run_kw)
     logz = res["logz"]
     if not (logz and np.isfinite(logz["mean"])):
-        raise AssertionError(f"phase 4: no successful NS evidence: {logz}")
+        raise AssertionError(f"phase {label}: no successful NS evidence: "
+                             f"{logz}")
     if abs(logz["mean"] - BANANA_LOGZ) >= 0.3:
-        raise AssertionError(f"phase 4: logZ {logz['mean']:.4f} is not "
+        raise AssertionError(f"phase {label}: logZ {logz['mean']:.4f} is not "
                              f"within 0.3 of {BANANA_LOGZ}")
-    if not _state_on(res["gp"], device.split(":")[0]):
-        raise AssertionError("phase 4: GP state is not on the device")
+    if res["termination_reason"] != "LogZ converged":
+        raise AssertionError(f"phase {label}: ended with "
+                             f"'{res['termination_reason']}'")
+    pool = run_kw.get("mc_points_method", "EHMC (the default)")
     timing = res["results_manager"].get_timing_summary()
-    print(f"[phase 4] banana WIPStd/NS on {device}: logZ "
+    print(f"[phase {label}] banana WIPStd, MC pool {pool}, on {device}: logZ "
           f"{logz['mean']:.4f} (truth {BANANA_LOGZ}), err_total "
           f"{logz['err_total']:.4f}, dlogz_sampler "
           f"{logz['dlogz_sampler']:.4f}, {res['gp'].npoints} evaluations, "
           f"termination '{res['termination_reason']}', wall {wall:.2f} s")
-    print("[phase 4] timing ledger (s): " + json.dumps(
+    print(f"[phase {label}] timing ledger (s): " + json.dumps(
         {k: round(v, 3) for k, v in timing["phase_times"].items()}))
     return {"logz": logz["mean"], "err_total": logz["err_total"],
-            "n_evals": res["gp"].npoints, "wall_s": wall}
+            "n_evals": res["gp"].npoints, "wall_s": wall,
+            "ledger": timing["phase_times"]}
 
 
 def _bench_data():
@@ -587,6 +631,184 @@ def phase_fit_d30(device):
     return {"fit_s": t_fit, "neg_mll": nmll}
 
 
+def _device_launches(fn):
+    """Device operations (kernels, copies, sets) that ``fn`` launches, from
+    torch.profiler's CUDA activity; None where the profiler records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def _moments_close(name, mean, std, ref_mean, ref_std, ref_name):
+    import numpy as np
+
+    dm = float(np.max(np.abs(np.asarray(mean) - np.asarray(ref_mean))))
+    ds = float(np.max(np.abs(np.asarray(std) - np.asarray(ref_std))))
+    print(f"[phase 8] {name} vs {ref_name}: max |mean diff| {dm:.4f}, max "
+          f"|std diff| {ds:.4f} (tolerance {POOL_ATOL})")
+    if not (dm < POOL_ATOL and ds < POOL_ATOL):
+        raise AssertionError(f"phase 8: {name} pool moments differ from "
+                             f"{ref_name}'s beyond {POOL_ATOL}")
+
+
+def phase_pools(device):
+    """The MCMC MC pools at N=1024, d=8 on the GP with the JAX package's
+    fitted hyperparameters: ensemble HMC cold (512 samples) and warm from
+    its warm_state, NUTS (4 chains, warmup 256, 512 samples, thinning 2);
+    walls, acceptance, divergences, leapfrog steps, and the device launches
+    per leapfrog step."""
+    import numpy as np
+    import torch
+
+    from bobe_tpu_torch import samplers
+    from bobe_tpu_torch.infer import nuts
+    from bobe_tpu_torch.utils.seed import set_global_seed
+
+    set_global_seed(0)
+    gp = build_gp_1024(device, JAX_LOG_PARAMS)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    pools, out = {}, {}
+    # transitions of each run: warmup plus kept samples times thinning 2
+    _, kept, cold_warmup = samplers.get_ehmc_settings(NDIM, num_samples=512)
+    transitions = {"ehmc_cold": cold_warmup + 2 * kept,
+                   "ehmc_warm": 24 + 2 * kept, "nuts": 256 + 512}
+    runs = (
+        ("ehmc_cold", lambda: samplers.sample_gp_ensemble(
+            gp, np_rng=np.random.default_rng(2), generator=gen(2),
+            num_samples=512)),
+        ("ehmc_warm", lambda: samplers.sample_gp_ensemble(
+            gp, np_rng=np.random.default_rng(3), generator=gen(3),
+            num_samples=512, warm_state=pools["ehmc_cold"]["warm_state"])),
+        ("nuts", lambda: samplers.sample_gp_nuts(
+            gp, np_rng=np.random.default_rng(4), generator=gen(4),
+            num_chains=4, warmup_steps=256, num_samples=512, thinning=2)))
+    for name, run in runs:
+        res, wall = _timed(run, device)
+        pools[name] = res
+        diag = res["diagnostics"]
+        x = res["x"]
+        if not (x.shape[1] == NDIM and np.all(np.isfinite(x))
+                and np.all((x >= 0) & (x <= 1))
+                and np.all(np.isfinite(res["logp"]))):
+            raise AssertionError(f"phase 8: {name} pool is not finite samples "
+                                 "in the unit cube")
+        n_leap = int(diag["n_leapfrog"])
+        print(f"[phase 8] {name}: {len(x)} samples in {wall:.3f} s, mean "
+              f"accept {np.array2string(np.asarray(diag['mean_accept']), precision=3)}, "
+              f"divergences {int(np.sum(diag['n_divergent']))}, {n_leap} "
+              f"lockstep leapfrog steps ({1e3 * wall / n_leap:.3f} ms each, "
+              f"{n_leap / transitions[name]:.2f} per transition over "
+              f"{transitions[name]}), warm path {bool(diag['warm'])}")
+        out[name] = {"wall_s": wall, "n_leapfrog": n_leap,
+                     "mean_accept": np.asarray(diag["mean_accept"]).tolist(),
+                     "n_divergent": int(np.sum(diag["n_divergent"]))}
+    if not pools["ehmc_warm"]["diagnostics"]["warm"]:
+        raise AssertionError("phase 8: the warm ensemble refresh was "
+                             "rejected and ran cold")
+    mom = {k: (p["x"].mean(0), p["x"].std(0)) for k, p in pools.items()}
+    print("[phase 8] means: " + json.dumps(
+        {k: np.round(m, 4).tolist() for k, (m, _) in mom.items()}))
+    print("[phase 8] stds: " + json.dumps(
+        {k: np.round(sd, 4).tolist() for k, (_, sd) in mom.items()}))
+    _moments_close("ehmc_cold", *mom["ehmc_cold"], *mom["nuts"], "nuts")
+    _moments_close("ehmc_warm", *mom["ehmc_warm"], *mom["nuts"], "nuts")
+    _moments_close("ehmc_cold", *mom["ehmc_cold"], JAX_EHMC_MEAN,
+                   JAX_EHMC_STD, "the JAX package's EHMC")
+    _moments_close("nuts", *mom["nuts"], JAX_NUTS_MEAN, JAX_NUTS_STD,
+                   "the JAX package's NUTS")
+
+    # device launches per lockstep leapfrog step of 64 chains: the step
+    # alone, then a whole warm refresh and a few NUTS transitions
+    vg = samplers._logprob_vg(gp, 1.0)
+    mass = nuts._identity_mass(NDIM, True, torch.float64, device)
+    z = torch.as_tensor(pools["ehmc_cold"]["warm_state"]["last_z"],
+                        device=device)
+    logp, grad = vg(z)
+    p = torch.randn(z.shape, generator=gen(5), dtype=z.dtype, device=device)
+    eps = torch.tensor(0.05, dtype=z.dtype, device=device)
+
+    def leapfrogs(n=100):
+        state = (z, p, grad)
+        for _ in range(n):
+            zz, pp, _, gg = nuts._leapfrog(vg, *state, eps, mass, True)
+            state = (zz, pp, gg)
+
+    per_step = _device_launches(leapfrogs)
+    warm_holder = {}
+
+    def warm_refresh():
+        warm_holder["r"] = samplers.sample_gp_ensemble(
+            gp, np_rng=np.random.default_rng(6), generator=gen(6),
+            num_samples=512, warm_state=pools["ehmc_cold"]["warm_state"])
+
+    refresh = _device_launches(warm_refresh)
+    nuts_holder = {}
+
+    def nuts_short():
+        nuts_holder["r"] = samplers.sample_gp_nuts(
+            gp, np_rng=np.random.default_rng(7), generator=gen(7),
+            num_chains=4, warmup_steps=8, num_samples=8, thinning=1)
+
+    short = _device_launches(nuts_short)
+    n_warm = int(warm_holder["r"]["diagnostics"]["n_leapfrog"])
+    n_nuts = int(nuts_holder["r"]["diagnostics"]["n_leapfrog"])
+    fmt = lambda n, k: "not measured" if n is None else f"{n / k:.1f}"
+    print(f"[phase 8] device launches per leapfrog step: the step alone "
+          f"{fmt(per_step, 100)}; a warm EHMC refresh {fmt(refresh, n_warm)} "
+          f"({refresh} launches / {n_warm} steps); a 16-transition NUTS run "
+          f"{fmt(short, n_nuts)} ({short} launches / {n_nuts} lockstep "
+          "leaves)")
+    out["launches_per_leapfrog"] = {
+        "step": None if per_step is None else per_step / 100,
+        "ehmc_warm_refresh": None if refresh is None else refresh / n_warm,
+        "nuts": None if short is None else short / n_nuts}
+    return out
+
+
+def phase_fallback(device):
+    """A banana run that ends before any nested sampling (min_evals above
+    max_evals): the final samples come from NUTS at the JAX package's
+    settings (4 chains, warmup 512, 2000 transitions per dimension, every
+    4th kept), timed by the run's ledger ("MCMC Sampling", its last span)."""
+    import numpy as np
+
+    from bobe_tpu_torch import bo
+    from bobe_tpu_torch.models import toys
+
+    res, wall = _banana_run(device, min_evals=1000, max_evals=40)
+    if res["logz"]:
+        raise AssertionError("phase 9: the run reached nested sampling")
+    x = res["samples"]["x"]
+    n = bo.FINAL_NUTS["num_chains"] * bo.FINAL_NUTS["samples_per_dim"] * 2 \
+        // bo.FINAL_NUTS["thinning"]
+    lo, hi = toys.banana_bounds
+    if not (x.shape == (n, 2) and np.all((x >= lo) & (x <= hi))
+            and np.all(np.isfinite(res["samples"]["logl"]))):
+        raise AssertionError(f"phase 9: fallback samples {x.shape} not "
+                             "finite, in the box, or not the expected count")
+    rm = res["results_manager"]
+    t_nuts = rm.last_timing("MCMC Sampling")
+    timing = rm.get_timing_summary()
+    print(f"[phase 9] banana run ended '{res['termination_reason']}' after "
+          f"{res['gp'].npoints} evaluations in {wall:.2f} s; final NUTS "
+          f"samples: {len(x)} in {t_nuts:.3f} s, mean "
+          f"{np.round(x.mean(0), 4).tolist()}, std "
+          f"{np.round(x.std(0), 4).tolist()}")
+    print("[phase 9] timing ledger (s): " + json.dumps(
+        {k: round(v, 3) for k, v in timing["phase_times"].items()}))
+    return {"fallback_s": t_nuts, "wall_s": wall}
+
+
 def main():
     import torch
 
@@ -621,12 +843,17 @@ def main():
     # above excluded
     counters = (kr.gram_masked, kr.gram_masked_backward)
     launches = {}
-    for label, run in (("4", lambda: phase_slice("cuda")),
+    results = {}
+    for label, run in (("4", lambda: phase_slice("cuda",
+                                                  mc_points_method="NS")),
                        ("5", lambda: phase_real_size("cuda")),
-                       ("6", lambda: phase_fit_d30("cuda"))):
+                       ("6", lambda: phase_fit_d30("cuda")),
+                       ("7", lambda: phase_slice("cuda", label="7")),
+                       ("8", lambda: phase_pools("cuda")),
+                       ("9", lambda: phase_fallback("cuda"))):
         for c in counters:
             c.launches = 0
-        res = run()
+        res = results[label] = run()
         launches[label] = [c.launches for c in counters]
         print(f"[phase {label}] kernel launches: gram_masked "
               f"{launches[label][0]}, gram_masked_backward "
@@ -637,6 +864,7 @@ def main():
     if launches["6"][1] <= 0:
         raise AssertionError("phase 6 did not launch the Gram backward "
                              "kernel")
+    res = results["6"]
     t_fwd = times[("forward", 1280, 30, 4)]["ms"]
     t_bwd = times[("backward", 1280, 30, 4)]["ms"]
     k_ms = launches["6"][0] * t_fwd + launches["6"][1] * t_bwd
@@ -645,6 +873,11 @@ def main():
           f"{t_bwd:.4f} ms (phase 3 device times at cap 1280, d=30, 4 "
           f"lanes) = {k_ms:.1f} ms of {res['fit_s'] * 1e3:.1f} ms "
           f"({100 * k_ms / (res['fit_s'] * 1e3):.2f} %)")
+    ledgers = {k: {p: round(v, 3) for p, v in results[k]["ledger"].items()}
+               for k in ("4", "7")}
+    print("[phase 7] timing ledger beside phase 4's (s): "
+          + json.dumps({"phase 4 (NS pool)": ledgers["4"],
+                        "phase 7 (EHMC pool)": ledgers["7"]}))
     for i, entry in enumerate((fwd, bwd)):
         entry["launches"] = sum(v[i] for v in launches.values())
         entry["launches_by_phase"] = {k: v[i] for k, v in launches.items()}

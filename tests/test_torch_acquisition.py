@@ -155,8 +155,14 @@ def test_mc_pools(gps):
     assert ns["method"] == "nested" and ns["x"].shape[1] == 2
     assert np.all((ns["x"] >= 0) & (ns["x"] <= 1))
     for method in ("EHMC", "NUTS"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tacq.get_mc_samples(tg, method=method)
+        mc = tacq.get_mc_samples(tg, method=method, num_samples=64,
+                                 warmup_steps=32,
+                                 np_rng=np.random.default_rng(8),
+                                 generator=torch.Generator().manual_seed(8))
+        # EHMC keeps at least 4 samples of each of its 64 chains
+        assert mc["method"] == "MCMC" and mc["x"].shape[1] == 2
+        assert mc["x"].shape[0] == (256 if method == "EHMC" else 64)
+        assert np.all((mc["x"] >= 0) & (mc["x"] <= 1))
     with pytest.raises(NotImplementedError, match="EI"):
         tacq.EI()
 

@@ -1,11 +1,13 @@
-"""The port's slice end to end on the CPU: ``BOBE(...).run(acq="wipstd",
-mc_points_method="NS")`` on a 2-d Gaussian toy with an analytic evidence,
-and every branch outside the slice raising ``NotImplementedError`` with its
-ROADMAP item instead of running as something else.
+"""The port end to end on the CPU: ``BOBE(...).run(acq="wipstd")`` with the
+default EHMC MC pool, with ``mc_points_method="NS"`` and ``"NUTS"``, and a
+run without a successful NS that falls back to final NUTS samples, on a 2-d
+Gaussian toy with an analytic evidence; and every branch the port has not
+reached raising ``NotImplementedError`` with its ROADMAP item instead of
+running as something else.
 
 tests/test_bo_2d.py's runs of the JAX package use ``do_final_ns=True``, which
-the port does not have yet; this run is its small-budget counterpart with a
-loose threshold, checked against the analytic logZ.
+the port does not have yet; these runs are its small-budget counterparts
+with a loose threshold, checked against the analytic logZ.
 """
 import os
 
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from bobe_tpu_torch import config
+from bobe_tpu_torch import bo, config
 from bobe_tpu_torch.bo import BOBE
 from bobe_tpu_torch.models import toys
 from bobe_tpu_torch.models.gp import GP
@@ -80,12 +82,45 @@ def test_unported_construction_branches_raise(tmp_path, init_kw, item):
     assert config.ROADMAP_ITEMS[item] in str(err.value)
 
 
+def _check_gaussian_run(results, logz_true):
+    assert results["termination_reason"] == "LogZ converged"
+    logz = results["logz"]
+    assert np.isfinite(logz["mean"])
+    assert abs(logz["mean"] - logz_true) < 0.5, (logz, logz_true)
+    samples = results["samples"]
+    assert samples["x"].min() >= 0.0 and samples["x"].max() <= 1.0
+    timing = results["results_manager"].get_timing_summary()["phase_times"]
+    assert timing["MCMC Sampling"] > 0
+
+
+def test_default_run_converges_with_the_ehmc_pool(tmp_path):
+    """``run(acq="wipstd")`` with its own defaults: the EHMC MC pool, its
+    refreshes re-warmed from the previous one's adapted kernel."""
+    _, _, logz_true = toys.make_gaussian(2, sigma=0.15)
+    bobe = _bobe(tmp_path, save=False)
+    results = bobe.run(acq="wipstd", min_evals=20, max_evals=60,
+                       max_gp_size=60, logz_threshold=0.5, fit_n_points=4,
+                       ns_n_points=4)
+    _check_gaussian_run(results, logz_true)
+    ws = bobe._nuts_warm
+    assert ws["kind"] == "ehmc" and ws["num_chains"] == 64
+    assert ws["last_z"].shape == (64, 2)
+
+
+def test_nuts_pool_run_converges(tmp_path):
+    _, _, logz_true = toys.make_gaussian(2, sigma=0.15)
+    bobe = _bobe(tmp_path, save=False)
+    results = bobe.run(acq="wipstd", mc_points_method="NUTS", min_evals=20,
+                       max_evals=60, max_gp_size=60, logz_threshold=0.5,
+                       fit_n_points=4, ns_n_points=4, num_hmc_warmup=64,
+                       num_hmc_samples=128)
+    _check_gaussian_run(results, logz_true)
+    assert bobe._nuts_warm["kind"] == "nuts"
+
+
 @pytest.mark.parametrize("run_kw,item", [
     ({"acq": "logei"}, "ei"),
     ({"acq": "ei"}, "ei"),
-    ({"mc_points_method": "EHMC"}, "ehmc"),
-    ({}, "ehmc"),  # the default pool refresh, as in the JAX package
-    ({"mc_points_method": "NUTS"}, "nuts"),
     ({"mc_points_method": "NS", "do_final_ns": True}, "dynamic_ns"),
 ])
 def test_unported_run_branches_raise(tmp_path, run_kw, item):
@@ -95,14 +130,25 @@ def test_unported_run_branches_raise(tmp_path, run_kw, item):
     assert config.ROADMAP_ITEMS[item] in str(err.value)
 
 
-def test_no_successful_ns_reaches_the_unported_nuts_fallback(tmp_path):
-    """A run that ends without a successful NS would fall back to NUTS
-    samples in the JAX package; the port raises instead."""
+def test_no_successful_ns_falls_back_to_nuts_samples(tmp_path):
+    """A run that ends before any NS (min_evals > max_evals) returns final
+    NUTS samples at the JAX package's settings: 4 chains, 2000 transitions
+    per dimension, every 4th kept, in the physical box, with the GP mean as
+    their logl."""
     bobe = _bobe(tmp_path, n_sobol_init=8, save=False)
-    with pytest.raises(NotImplementedError) as err:
-        bobe.run(acq="wipstd", mc_points_method="uniform", min_evals=1000,
-                 max_evals=12, batch_size=4, fit_n_points=4)
-    assert config.ROADMAP_ITEMS["nuts"] in str(err.value)
+    results = bobe.run(acq="wipstd", min_evals=1000, max_evals=12,
+                       batch_size=4, fit_n_points=4)
+    assert not results["logz"]
+    assert results["termination_reason"] == "Maximum evaluations reached"
+    samples = results["samples"]
+    n = bo.FINAL_NUTS["num_chains"] * bo.FINAL_NUTS["samples_per_dim"] * 2 \
+        // bo.FINAL_NUTS["thinning"]
+    assert samples["x"].shape == (n, 2)
+    assert samples["x"].min() >= 0.0 and samples["x"].max() <= 1.0
+    assert np.all(np.isfinite(samples["logl"]))
+    np.testing.assert_array_equal(samples["weights"], np.ones(n))
+    timing = results["results_manager"].get_timing_summary()["phase_times"]
+    assert timing["MCMC Sampling"] > 0
 
 
 def test_pools_and_device(monkeypatch):

@@ -164,6 +164,3 @@ def test_repeated_runs_merge_and_tighten_the_sampler_error(jax_gaussian_gp):
     assert z3["dlogz_sampler"] < z1["dlogz_sampler"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tsamp.nested_sampling(tg, dynamic=True)
-    for fn in (tsamp.sample_gp_nuts, tsamp.sample_gp_ensemble):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(tg)

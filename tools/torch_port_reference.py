@@ -1,4 +1,4 @@
-"""Reference numbers of the JAX package for chip_smoke.py, phases 5 and 6.
+"""Reference numbers of the JAX package for chip_smoke.py, phases 5, 6 and 8.
 
 Runs the JAX package (bobe_tpu) on the CPU:
 
@@ -7,14 +7,19 @@ Runs the JAX package (bobe_tpu) on the CPU:
    current hyperparameters plus three seeded draws), then one
    convergence-mode ``nested_sampling`` on a GP built from the fitted
    log-hyperparameters;
-2. on examples/gaussian_30d.py's target (d=30, sigma 0.12) at N=1200 seeded
+2. on that same GP, the MC pools of phase 8: a cold ensemble-HMC pool
+   (``sample_gp_ensemble``, 512 samples) and a NUTS pool (4 chains, warmup
+   256, 512 samples, thinning 2), reduced to their per-dimension means and
+   standard deviations;
+3. on examples/gaussian_30d.py's target (d=30, sigma 0.12) at N=1200 seeded
    uniform points with 1 % target noise (capacity 1280, above the fit's
    per-dimension budget, so every objective rebuilds the Gram matrix),
    ``GP(noise=1e-8).fit(x0, maxiter=20)`` from four seeded restarts.
 
 It prints one JSON line: the fitted log-hyperparameters, each fit's final
-negative MLL, and the NS logZ with its ``dlogz_sampler``; chip_smoke.py
-carries them as constants and holds the PyTorch port to them on the card.
+negative MLL, the NS logZ with its ``dlogz_sampler`` and the pools' moments;
+chip_smoke.py carries them as constants and holds the PyTorch port to them
+on the card.
 
     JAX_PLATFORMS=cpu python tools/torch_port_reference.py
 """
@@ -66,7 +71,8 @@ def make_data_d30(make_gaussian):
 def main():
     from bobe_tpu.models import toys
     from bobe_tpu.models.gp import GP
-    from bobe_tpu.samplers import nested_sampling
+    from bobe_tpu.samplers import (nested_sampling, sample_gp_ensemble,
+                                   sample_gp_nuts)
     from bobe_tpu.utils.seed import set_global_seed
 
     set_global_seed(0)
@@ -87,6 +93,17 @@ def main():
                                   rng=np.random.default_rng(1))
     t_ns = time.time() - t0
 
+    t0 = time.time()
+    ehmc = sample_gp_ensemble(ns_gp, np_rng=np.random.default_rng(2),
+                              rng_key=jax.random.PRNGKey(2), num_samples=512)
+    nuts = sample_gp_nuts(ns_gp, np_rng=np.random.default_rng(3),
+                          rng_key=jax.random.PRNGKey(3), num_chains=4,
+                          warmup_steps=256, num_samples=512, thinning=2)
+    t_pools = time.time() - t0
+    pools = {f"{name}_{stat}": getattr(np, stat)(p["x"], axis=0).tolist()
+             for name, p in (("ehmc", ehmc), ("nuts", nuts))
+             for stat in ("mean", "std")}
+
     x30, y30, x0_extra30 = make_data_d30(toys.make_gaussian)
     gp30 = GP(train_x=x30, train_y=y30, noise=1e-8)
     x0_30 = np.vstack([np.log(np.asarray(gp30.get_hyperparams()))[None, :],
@@ -102,6 +119,7 @@ def main():
         "ns_logz": float(logz["mean"]),
         "ns_dlogz_sampler": float(logz["dlogz_sampler"]),
         "cpu_seconds_fit": t_fit, "cpu_seconds_ns": t_ns,
+        **pools, "cpu_seconds_pools": t_pools,
         "d30_fit_neg_mll": -float(info30["mll"]),
         "d30_log_params": np.asarray(info30["params"]).tolist(),
         "cpu_seconds_fit_d30": t_fit30}))
