@@ -5,7 +5,8 @@ Counterpart of ``bobe_tpu/bo.py``: construct with a likelihood, call
 that is actively refined by evidence-weighted acquisition.
 
 The port runs the WIPV/WIPStd loop with an EHMC (the default), NUTS, NS or
-uniform MC pool:
+uniform MC pool, over a plain GP or, with ``use_clf=True``, a
+classifier-gated one (models/clf_gp.py):
 
 * initial design = scrambled Sobol (+ user points), deduped, scaled to the
   unit cube;
@@ -16,15 +17,17 @@ uniform MC pool:
   logZ-bound convergence delta = (upper - lower) / 2 < threshold for
   ``convergence_n_iters`` successive checks, then a final-precision merged
   NS pass;
+* ``do_final_ns=True`` on a run that did not converge: a final fit, a
+  dynamic NS of merged runs and a top-up to the measured sampler noise;
 * without a successful NS in the run, final posterior samples from NUTS;
 * the results dict and the result files of the JAX package.
 
 The GP state lives on ``device`` (``config.get_device()``, cuda, by default;
 without a card the constructor raises unless given ``device="cpu"``);
 likelihood evaluations run on the host through the evaluation pool. Every
-branch the port has not reached yet (EI/LogEI, the classifier GP, dynamic
-final NS, resume, Cobaya, the server, the multiprocess/distributed pools)
-raises ``NotImplementedError`` naming its ROADMAP item.
+branch the port has not reached yet (EI/LogEI, resume, Cobaya, the server,
+the multiprocess/distributed pools) raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,10 +40,12 @@ import numpy as np
 from . import config
 from .acquisition import WIPV, WIPStd, get_mc_samples
 from .likelihood import CobayaLikelihood, Likelihood
+from .models.clf_gp import GPwithClassifier
 from .models.gp import GP
 from .parallel.pool import EvalPool, make_pool
 from .samplers import nested_sampling
-from .utils.core import kl_divergence_gaussian, resample_equal, scale_from_unit, scale_to_unit
+from .utils.core import (get_threshold_for_nsigma, kl_divergence_gaussian,
+                         resample_equal, scale_from_unit, scale_to_unit)
 from .utils.log import get_logger, update_verbosity
 from .utils.results import BOBEResults
 from .utils.seed import get_numpy_rng, new_torch_generator, set_global_seed
@@ -49,8 +54,16 @@ log = get_logger("bo")
 
 _ACQ_FUNCS = {"wipv": WIPV, "wipstd": WIPStd}
 _MC_METHODS = ("EHMC", "NUTS", "NS", "uniform")
-# largest nlive multiplier of the final-precision NS pass (see _ns_boost)
+# largest nlive multiplier of the final NS passes and their top-up (see
+# _ns_boost): the environment's BOBE_TPU_NS_BOOST_CAP, as in the JAX
+# package, else 16
 NS_BOOST_CAP = 16
+
+
+def ns_boost_cap() -> int:
+    return int(os.environ.get("BOBE_TPU_NS_BOOST_CAP", NS_BOOST_CAP))
+
+
 # the final NUTS samples of a run without a successful NS: 4 chains, 512
 # warmup transitions, 2000 transitions per dimension, every 4th kept
 FINAL_NUTS = {"num_chains": 4, "warmup_steps": 512, "samples_per_dim": 2000,
@@ -95,8 +108,6 @@ class BOBE:
             raise config.not_ported("The device server", "server")
         if resume or resume_file is not None:
             raise config.not_ported("Resume", "resume")
-        if use_clf:
-            raise config.not_ported("The classifier GP (use_clf)", "clf")
         self.device = config.resolve_device(device)
 
         self.pool = make_pool(pool) if isinstance(pool, str) else pool
@@ -132,7 +143,12 @@ class BOBE:
 
         train_x, train_y = self._get_initial_training_data(
             n_sobol_init, init_train_x, init_train_y)
-        self._initialize_gp(train_x, train_y, optimizer, dict(gp_kwargs or {}))
+        clf = ({"clf_type": clf_type, "clf_use_size": clf_use_size,
+                "clf_update_step": clf_update_step,
+                "clf_nsigma_threshold": clf_nsigma_threshold}
+               if use_clf else None)
+        self._initialize_gp(train_x, train_y, optimizer,
+                            dict(gp_kwargs or {}), clf)
 
         # best-point bookkeeping
         y_raw = self.gp.train_y_raw.cpu().numpy()
@@ -195,11 +211,28 @@ class BOBE:
         return (scale_to_unit(pts, self.loglikelihood.param_bounds),
                 vals.reshape(-1))
 
-    def _initialize_gp(self, train_x, train_y, optimizer, gp_kwargs):
+    def _initialize_gp(self, train_x, train_y, optimizer, gp_kwargs,
+                       clf=None):
+        """The GP, or with ``clf`` (type, use size, update step, n-sigma
+        threshold) the classifier-gated GP: its classifier separates points
+        within the n-sigma threshold (at least 75) of the incumbent, its GP
+        holds those within twice that."""
         gp_kwargs.update({"train_x": train_x, "train_y": train_y,
                           "param_names": self.loglikelihood.param_list,
                           "optimizer": optimizer, "device": self.device})
-        self.gp = GP(**gp_kwargs)
+        if clf is not None:
+            clf_threshold = max(75.0, get_threshold_for_nsigma(
+                clf["clf_nsigma_threshold"], self.ndim))
+            gp_kwargs.update({
+                "clf_type": clf["clf_type"],
+                "clf_use_size": clf["clf_use_size"],
+                "clf_update_step": clf["clf_update_step"],
+                "probability_threshold": 0.5, "minus_inf": self.minus_inf,
+                "clf_threshold": clf_threshold,
+                "gp_threshold": 2 * clf_threshold})
+            self.gp = GPwithClassifier(**gp_kwargs)
+        else:
+            self.gp = GP(**gp_kwargs)
         self.results_manager.start_timing("GP Training")
         log.info(f"Hyperparameters before refit: {self.gp.hyperparams_dict()}")
         self.gp.fit(n_restarts=4, maxiter=500, rng=self.np_rng)
@@ -228,6 +261,10 @@ class BOBE:
         self.results_manager.end_timing("GP Training")
         self.results_manager.update_gp_hyperparams(
             step, self.gp.lengthscales.tolist(), self.gp.kernel_variance)
+        if isinstance(self.gp, GPwithClassifier):
+            self.results_manager.start_timing("Classifier Training")
+            self.gp.train_classifier()
+            self.results_manager.end_timing("Classifier Training")
 
     def get_next_batch(self, acq_kwargs, n_batch, n_restarts, maxiter,
                        early_stop_patience, step, verbose=True):
@@ -330,9 +367,18 @@ class BOBE:
 
     def finalise_results(self):
         gp_info = {"gp_training_set_size": int(self.gp.npoints),
-                   "gp_final_best_loglike": float(self.best_f),
-                   "classifier_used": False, "classifier_type": None,
-                   "classifier_training_set_size": 0}
+                   "gp_final_best_loglike": float(self.best_f)}
+        if isinstance(self.gp, GPwithClassifier):
+            gp_info.update({
+                "classifier_used": bool(self.gp.use_clf),
+                "classifier_type": str(self.gp.clf_type),
+                "classifier_training_set_size": int(self.gp.clf_data_size),
+                "classifier_use_threshold": int(self.gp.clf_use_size),
+                "classifier_probability_threshold": float(
+                    self.gp.probability_threshold)})
+        else:
+            gp_info.update({"classifier_used": False, "classifier_type": None,
+                            "classifier_training_set_size": 0})
         logz_dict = self.results_dict.get("logz", {})
         if not logz_dict:
             log.warning("No logz information found; nested sampling never ran")
@@ -371,9 +417,6 @@ class BOBE:
                                  f"{list(_ACQ_FUNCS) + ['ei', 'logei']}")
         if mc_points_method not in _MC_METHODS:
             raise ValueError(f"Unknown MC sample method '{mc_points_method}'")
-        if do_final_ns:
-            raise config.not_ported("do_final_ns (the final dynamic NS)",
-                                    "dynamic_ns")
         try:
             self.min_evals, self.max_evals = min_evals, max_evals
             self.max_gp_size, self.logz_threshold = max_gp_size, logz_threshold
@@ -422,12 +465,12 @@ class BOBE:
         """nlive multiplier (as a count of merged base-nlive runs) that
         brings the NS sampler noise down to half the logz threshold: noise
         scales ~ 1/sqrt(nlive), so the factor is the squared noise/target
-        ratio, clipped to [lo, NS_BOOST_CAP]. An unknown noise level
+        ratio, clipped to [lo, ns_boost_cap()]. An unknown noise level
         (dlogz_s <= 0) gets 2."""
         if dlogz_s <= 0:
             return 2
         return int(np.clip(np.ceil((2.0 * dlogz_s / self.logz_threshold) ** 2),
-                           lo, max(lo, NS_BOOST_CAP)))
+                           lo, max(lo, ns_boost_cap())))
 
     def _refresh_mc_samples(self, np_rng=None, generator=None,
                             phase: str = "MCMC Sampling"):
@@ -587,6 +630,9 @@ class BOBE:
                         f"{k}={logz_dict[k]:.4f}"
                         for k in logz_keys if k in logz_dict))
 
+        if self.do_final_ns and not self.converged:
+            ns_success = self._final_dynamic_ns(ii, logz_keys) or ns_success
+
         if self.ns_samples is not None and ns_success:
             samples = self.ns_samples["x"]
             weights = self.ns_samples["weights"]
@@ -609,6 +655,68 @@ class BOBE:
             "x": scale_from_unit(np.asarray(samples),
                                  self.loglikelihood.param_bounds),
             "weights": np.asarray(weights), "logl": np.asarray(loglikes)}
+
+    def _final_dynamic_ns(self, ii: int, logz_keys) -> bool:
+        """The final pass of a run that did not converge: a final fit, then
+        a dynamic NS of ``_ns_boost`` merged runs (from the last convergence
+        NS's sampler noise), topped up with static runs merged at the
+        dead-point level until the measured noise reaches half the
+        threshold (at most ns_boost_cap() runs in all). Adopted only on
+        success, so a failed final pass keeps an earlier NS. Returns its
+        success."""
+        self.results_manager.start_timing("GP Training")
+        self.gp.fit(n_restarts=4, maxiter=500, rng=self.np_rng)
+        self.results_manager.end_timing("GP Training")
+        log.info("Final Nested Sampling")
+        self.results_manager.start_timing("Nested Sampling")
+        dlogz_s = float(self.results_dict.get("logz", {}).get(
+            "dlogz_sampler", 0.0))
+        boost = self._ns_boost(dlogz_s, lo=1)
+        final_samples, logz_dict, final_ok = nested_sampling(
+            gp=self.gp, mode="convergence", dlogz=0.01, n_runs=boost,
+            dynamic=True, rng=self.np_rng)
+        if final_ok:
+            # the final run measures its own noise: after b1 runs it is s1,
+            # and threshold/2 needs b1 * ceil((2 s1 / threshold)^2) runs
+            measured = float(logz_dict.get("dlogz_sampler", 0.0))
+            want = min(boost * self._ns_boost(measured, lo=1),
+                       max(boost, ns_boost_cap()))
+            if want > boost and measured > self.logz_threshold / 2.0:
+                log.info(f"Final NS top-up: {want - boost} more runs "
+                         f"(measured sampler noise {measured:.3f} > "
+                         f"threshold/2 = {self.logz_threshold / 2:.3f})")
+                raw = final_samples.get("raw")
+                top_samples, top_logz, top_ok = nested_sampling(
+                    gp=self.gp, mode="convergence", dlogz=0.01,
+                    n_runs=want - boost,
+                    merge_with=[raw] if raw is not None else None,
+                    dynamic=False, rng=self.np_rng)
+                if top_ok:
+                    final_samples, logz_dict = top_samples, top_logz
+                    remeasured = float(top_logz.get("dlogz_sampler",
+                                                    measured))
+                    if remeasured > self.logz_threshold / 2.0:
+                        log.info(
+                            f"Final NS top-up: merged sampler noise "
+                            f"{remeasured:.3f} still above threshold/2 = "
+                            f"{self.logz_threshold / 2:.3f} (merge cap "
+                            f"{ns_boost_cap()}); err_total carries it")
+        self.results_manager.end_timing("Nested Sampling")
+        log.info("Final LogZ: " + ", ".join(
+            f"{k}={logz_dict[k]:.4f}" for k in logz_keys if k in logz_dict))
+        if not final_ok:
+            return False
+        self.ns_samples = final_samples
+        eq_x, eq_l = resample_equal(
+            final_samples["x"], final_samples["logl"],
+            weights=final_samples["weights"], rng=self.np_rng)
+        self.converged = self.check_convergence_logz(
+            ii + 1, logz_dict, eq_x, eq_l, save_checkpoint=False)
+        self.results_dict["logz"] = logz_dict
+        if self.converged:
+            self.termination_reason = "LogZ converged"
+            self.results_dict["termination_reason"] = self.termination_reason
+        return True
 
     def run_WIPStd(self, ii: int = 0):
         return self.run_weighted_integrated_posterior(WIPStd, ii)

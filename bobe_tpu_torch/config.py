@@ -70,16 +70,14 @@ PREDICT_CHUNK = 16384
 
 # Work that the port has not reached yet, by its ROADMAP.md queue-1 entry.
 ROADMAP_ITEMS = {
-    "dynamic_ns": "1. dynamic NS / do_final_ns",
-    "ei": "2. EI/LogEI",
-    "clf": "3. classifier path (use_clf)",
-    "gp_options": "4. SAAS/DSLP priors and the input warp (with the Gram "
+    "ei": "1. EI/LogEI",
+    "gp_options": "2. the SAAS prior and the input warp (with the Gram "
                   "kernel's gradient in x)",
-    "rect_gram": "5. rectangular masked K(X, Xq) kernel",
-    "resume": "6. resume and plots",
-    "cobaya": "7. Cobaya",
-    "pools": "8. Multiprocess/Distributed pools and multi-GPU",
-    "server": "9. server",
+    "rect_gram": "3. rectangular masked K(X, Xq) kernel",
+    "resume": "4. resume and plots",
+    "cobaya": "5. Cobaya",
+    "pools": "6. Multiprocess/Distributed pools and multi-GPU",
+    "server": "7. server",
 }
 
 

@@ -13,6 +13,10 @@ over batched tensor ops with the same semantics:
   ``spec`` speculative shrink candidates per lane in one batched likelihood
   call. Every lane runs its n_repeats slice updates back to back.
 * Stopping: remaining-evidence criterion dlogz, plus call and buffer budgets.
+* Dynamic runs (``run_nested_dynamic``): a base run, then a second live set
+  seeded in the posterior bulk, decorrelated by constrained slice sampling
+  and run to the end, merged with the base run by the varying-live-count
+  volume schedule (``merge_runs``).
 
 Each outer iteration reads the stopping quantities from the device once, and
 each inner iteration reads whether any lane is still active once: the host
@@ -29,6 +33,8 @@ import torch
 from .. import config
 from ..ops import chol as chol_ops
 from ..utils.log import get_logger
+from ..utils.seed import split_generator
+from . import integrals
 
 log = get_logger("nested")
 
@@ -92,39 +98,32 @@ def _resolve_spec(spec, d: int) -> int:
     return max(1, int(spec))
 
 
-def _replace_batch(loglike_fn, gen, live_x, live_logl, survivor_idx, lstar,
-                   K: int, n_repeats: int, max_shrink: int, spec: int):
-    """Evolve K clones of random survivors above lstar by slice sampling.
-    Returns (x_new, l_new, n_evals (device), n_inner_iterations)."""
-    nlive, d = live_x.shape
-    dev, dt = live_x.device, live_x.dtype
-    pick = torch.randint(0, nlive - K, (K,), generator=gen, device=dev)
-    idx = survivor_idx[pick]
-    x_cur = live_x[idx]
-    l_cur = live_logl[idx]
-    chol = _live_cov_chol(live_x)  # fixed within this outer step
-
-    def draw_dirs():
-        z = torch.randn((K, d), generator=gen, dtype=dt, device=dev)
-        return z @ chol.T
-
-    e = draw_dirs()
+def _slice_lanes(loglike_fn, gen, x_cur, l_cur, lstar, n_repeats: int,
+                 max_shrink: int, spec: int, draw_dirs):
+    """``n_repeats`` constrained slice updates (logL > lstar) of every lane,
+    the lanes in lockstep, each running its updates back to back; a lane's
+    next direction comes from ``draw_dirs(x)`` ((n, d) directions at the
+    lanes' current points). The host reads whether any lane is active once
+    an iteration. Returns (x, logl, n_evals (device), iterations)."""
+    n, d = x_cur.shape
+    dev, dt = x_cur.device, x_cur.dtype
+    e = draw_dirs(x_cur)
     lo, hi = _chord_bounds(x_cur, e)
-    rep = torch.zeros(K, dtype=torch.int64, device=dev)
-    shrink = torch.zeros(K, dtype=torch.int64, device=dev)
+    rep = torch.zeros(n, dtype=torch.int64, device=dev)
+    shrink = torch.zeros(n, dtype=torch.int64, device=dev)
     nev = torch.zeros((), dtype=torch.int64, device=dev)
-    lanes = torch.arange(K, device=dev)
+    lanes = torch.arange(n, device=dev)
     steps = torch.arange(spec, device=dev)
     it = 0
     while it < n_repeats * max_shrink:
         active = rep < n_repeats
         if not bool(active.any()):
             break
-        u = torch.rand((spec, K), generator=gen, dtype=dt, device=dev)
+        u = torch.rand((spec, n), generator=gen, dtype=dt, device=dev)
         ts, lo_end, hi_end = _spec_candidates(u, lo, hi, spec)
         x_try = torch.clamp(x_cur[:, None, :] + ts[..., None] * e[:, None, :],
-                            0.0, 1.0).reshape(K * spec, d)
-        l_try = loglike_fn(x_try).reshape(K, spec)
+                            0.0, 1.0).reshape(n * spec, d)
+        l_try = loglike_fn(x_try).reshape(n, spec)
         # candidate s is reachable only while the shrink budget lasts
         reachable = shrink[:, None] + steps[None, :] < max_shrink
         acc = (l_try > lstar) & reachable
@@ -136,7 +135,7 @@ def _replace_batch(loglike_fn, gen, live_x, live_logl, survivor_idx, lstar,
         n_reach = torch.clamp(max_shrink - shrink, 0, spec)
         used = torch.where(any_acc, first + 1, n_reach)
         nev = nev + torch.sum(torch.where(active, used, torch.zeros_like(used)))
-        x_acc = x_try.reshape(K, spec, d)[lanes, first]
+        x_acc = x_try.reshape(n, spec, d)[lanes, first]
         l_acc = l_try[lanes, first]
         x_cur = torch.where(ok[:, None], x_acc, x_cur)
         l_cur = torch.where(ok, l_acc, l_cur)
@@ -146,7 +145,7 @@ def _replace_batch(loglike_fn, gen, live_x, live_logl, survivor_idx, lstar,
         shrink = torch.where(nok, shrink + n_reach, shrink)
         complete = ok | (nok & (shrink >= max_shrink))
         rep = rep + complete.to(rep.dtype)
-        e_new = draw_dirs()
+        e_new = draw_dirs(x_cur)
         lo_new, hi_new = _chord_bounds(x_cur, e_new)
         e = torch.where(complete[:, None], e_new, e)
         lo = torch.where(complete, lo_new, lo)
@@ -154,6 +153,25 @@ def _replace_batch(loglike_fn, gen, live_x, live_logl, survivor_idx, lstar,
         shrink = torch.where(complete, torch.zeros_like(shrink), shrink)
         it += 1
     return x_cur, l_cur, nev, it
+
+
+def _replace_batch(loglike_fn, gen, live_x, live_logl, survivor_idx, lstar,
+                   K: int, n_repeats: int, max_shrink: int, spec: int):
+    """Evolve K clones of random survivors above lstar by slice sampling,
+    with directions from the live set's covariance (fixed within the outer
+    step). Returns (x_new, l_new, n_evals (device), n_inner_iterations)."""
+    nlive, d = live_x.shape
+    dev, dt = live_x.device, live_x.dtype
+    pick = torch.randint(0, nlive - K, (K,), generator=gen, device=dev)
+    idx = survivor_idx[pick]
+    chol = _live_cov_chol(live_x)
+
+    def draw_dirs(x):
+        z = torch.randn((K, d), generator=gen, dtype=dt, device=dev)
+        return z @ chol.T
+
+    return _slice_lanes(loglike_fn, gen, live_x[idx], live_logl[idx], lstar,
+                        n_repeats, max_shrink, spec, draw_dirs)
 
 
 def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
@@ -273,10 +291,6 @@ def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
                     success, schedule, float(logvol0), n_inner)
 
 
-def run_nested_dynamic(*args, **kwargs):
-    raise config.not_ported("Dynamic nested sampling", "dynamic_ns")
-
-
 def merge_runs(runs, logvol0: float = 0.0):
     """Merge NS runs with dynesty's varying-live-count combine.
 
@@ -307,3 +321,96 @@ def merge_runs(runs, logvol0: float = 0.0):
 
     logvol = logvol0 + np.cumsum(np.log(n_at_death / (n_at_death + 1.0)))
     return xs, logls, logvol, n_at_death
+
+
+def _decorrelate(loglike_fn, gen, x0, l0, lstar, n_repeats: int,
+                 max_shrink: int, spec: int):
+    """Constrained slice sampling of every point (n_repeats updates each,
+    above ``lstar``): turns volume-weighted resamples of dead points into
+    fresh draws before a dynamic batch, since duplicated deaths would
+    shrink the merged volume schedule twice. Directions come from the
+    evolving points' covariance, refreshed every iteration. Returns (x,
+    logl, n_evals (device), iterations)."""
+    n, d = x0.shape
+
+    def draw_dirs(x):
+        z = torch.randn((n, d), generator=gen, dtype=x.dtype, device=x.device)
+        return z @ _live_cov_chol(x).T
+
+    return _slice_lanes(loglike_fn, gen, x0, l0, lstar, n_repeats,
+                        max_shrink, spec, draw_dirs)
+
+
+def _batch_seed_probs(logvol, above, logvol0: float) -> np.ndarray:
+    """Volume-shell weights for seeding a dynamic batch from the base run's
+    dead points above the bound. The first shell starts at the crossing
+    volume, the ledger value of the last death below the bound (the run's
+    initial volume ``logvol0`` when none is below)."""
+    lv = logvol[above]
+    crossing = float(np.min(logvol[~above], initial=logvol0))
+    lv_prev = np.concatenate([[crossing], lv[:-1]])
+    dvol = np.exp(lv_prev) - np.exp(lv)
+    dvol = np.clip(dvol, 1e-300, None)
+    return dvol / dvol.sum()
+
+
+def run_nested_dynamic(loglike_apply: Callable, ctx, d: int,
+                       generator: torch.Generator, nlive: int = 500,
+                       dlogz: float = 0.01, maxcall: int = int(5e6),
+                       batch_frac: float = 1.0, wt_threshold: float = 0.01,
+                       live_x=None, live_logl=None, rng=None,
+                       logvol0: float = 0.0, **ns_kwargs) -> NSResult:
+    """Dynamic nested sampling: a static base run, then a batch of
+    ``batch_frac * nlive`` live points devoted to the likelihood range whose
+    importance weight exceeds ``wt_threshold`` of the peak, merged with the
+    base run by the varying-live-count schedule (:func:`merge_runs`). The
+    batch is seeded by volume-weighted resampling of the base run's dead
+    points above the bound (``rng``), decorrelated first."""
+    rng = rng if rng is not None else np.random.default_rng()
+    g_base, g_batch, g_dec = split_generator(generator, 3)
+    base = run_nested(loglike_apply, ctx, d, g_base, nlive=nlive, dlogz=dlogz,
+                      maxcall=maxcall, live_x=live_x, live_logl=live_logl,
+                      rng=rng, logvol0=logvol0, **ns_kwargs)
+    if not base.success:
+        return base
+
+    # the posterior bulk's lower bound: the first dead point whose weight
+    # exceeds wt_threshold of the largest
+    logwt = integrals.logwt_from(base.dead_logl, base.logvol,
+                                 lv_start=base.logvol0)
+    keep = logwt >= logwt.max() + np.log(wt_threshold)
+    l_lo = float(base.dead_logl[np.argmax(keep)])
+
+    nlive_batch = max(8, int(round(batch_frac * nlive)))
+    above = base.dead_logl > l_lo
+    if above.sum() < 2:
+        return base
+    p = _batch_seed_probs(base.logvol, above, base.logvol0)
+    pick = rng.choice(np.sum(above), size=nlive_batch, replace=True, p=p)
+    dt, dev = config.DTYPE, generator.device
+    bx = torch.as_tensor(base.dead_x[above][pick], dtype=dt, device=dev)
+    bl = torch.as_tensor(base.dead_logl[above][pick], dtype=dt, device=dev)
+    # the decorrelation depth is the runs' slice depth
+    n_rep = ns_kwargs.get("n_repeats") or max(3, int(math.ceil(1.5 * d)))
+    bx, bl, dec_calls, dec_iter = _decorrelate(
+        lambda x: loglike_apply(ctx, x), g_dec, bx, bl,
+        torch.tensor(l_lo, dtype=dt, device=dev), int(n_rep), 40,
+        _resolve_spec(ns_kwargs.get("spec"), d))
+
+    batch = run_nested(loglike_apply, ctx, d, g_batch, nlive=nlive_batch,
+                       dlogz=dlogz, maxcall=maxcall, live_x=bx, live_logl=bl,
+                       rng=rng, **ns_kwargs)
+
+    xs, logls, logvol, sched = merge_runs([
+        (base.dead_x, base.dead_logl, base.nlive_schedule, -np.inf),
+        (batch.dead_x, batch.dead_logl, batch.nlive_schedule, l_lo),
+    ], logvol0=logvol0)
+    from scipy.special import logsumexp
+
+    logz = float(logsumexp(integrals.logwt_from(logls, logvol,
+                                                lv_start=logvol0)))
+    return NSResult(xs, logls, logvol, logz,
+                    base.n_calls + batch.n_calls + int(dec_calls),
+                    base.n_iter + batch.n_iter, base.nlive + batch.nlive,
+                    bool(base.success and batch.success), sched,
+                    float(logvol0), base.n_inner + batch.n_inner + dec_iter)

@@ -106,7 +106,7 @@ class GPTrainConfig:
     kernel: str = "rbf"
     noise: float = 1e-8
     fixed_kernel_variance: bool = False
-    lengthscale_prior: Any = None      # None | frozen spec
+    lengthscale_prior: Any = None      # None | 'DSLP' | frozen spec
     kernel_variance_prior: Any = None  # None | 'fixed' | frozen spec
     lengthscale_bounds: tuple = (0.01, 5.0)
     kernel_variance_bounds: tuple = (1e-4, 1e8)
@@ -117,10 +117,9 @@ class GPTrainConfig:
     def __post_init__(self):
         if self.input_warp:
             raise config.not_ported("The input warp", "gp_options")
-        if self.lengthscale_prior in ("DSLP", "SAAS"):
-            raise config.not_ported(
-                f"The {self.lengthscale_prior} lengthscale prior",
-                "gp_options")
+        if self.lengthscale_prior == "SAAS":
+            raise config.not_ported("The SAAS lengthscale prior",
+                                    "gp_options")
 
 
 # =====================================================================
@@ -309,8 +308,8 @@ def _parse_log_params(cfg: GPTrainConfig, state: GPState, log_params):
 
 
 def _prior_logprob(cfg: GPTrainConfig, d: int, ls, amp, tausq):
-    """Hyperprior: uniform (or a user spec) on the amplitude unless fixed,
-    uniform (or a user spec) on every lengthscale."""
+    """Hyperprior: uniform (or a user spec) on the amplitude unless fixed;
+    on every lengthscale uniform, the DSLP prior, or a user spec."""
     lp = torch.zeros_like(amp)
     kv_spec = _thaw_spec(cfg.kernel_variance_prior)
     if not cfg.fixed_kernel_variance:
@@ -319,6 +318,8 @@ def _prior_logprob(cfg: GPTrainConfig, d: int, ls, amp, tausq):
                        "low": cfg.kernel_variance_bounds[0],
                        "high": cfg.kernel_variance_bounds[1]}
         lp = lp + mll_ops.spec_logprob(kv_spec, amp)
+    if cfg.lengthscale_prior == "DSLP":
+        return lp + mll_ops.dslp_lengthscale_logprob(ls, d)
     ls_spec = _thaw_spec(cfg.lengthscale_prior)
     if ls_spec is None:
         ls_spec = {"name": "Uniform", "low": cfg.lengthscale_bounds[0],
@@ -915,6 +916,14 @@ class GP:
 
 
 def state_from_numpy(sd: Dict[str, Any], device=None) -> GP:
-    """The port's ``GP`` from a state dict of numpy values, such as the JAX
-    package's ``GP.state_dict()``, refreshed on ``device``."""
+    """The port's ``GP`` (or ``GPwithClassifier``, by the dict's
+    ``gp_class``) from a state dict of numpy values, such as the JAX
+    package's ``state_dict()``, refreshed on ``device``."""
+    gp_class = sd.get("gp_class", "GP")
+    if isinstance(gp_class, np.ndarray):
+        gp_class = gp_class.item()
+    if gp_class == "GPwithClassifier":
+        from .clf_gp import GPwithClassifier
+
+        return GPwithClassifier.from_state_dict(sd, device=device)
     return GP.from_state_dict(sd, device=device)

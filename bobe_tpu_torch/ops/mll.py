@@ -67,7 +67,11 @@ def spec_logprob(spec: dict, x):
 # ---------------------------------------------------------------------- priors
 
 def dslp_lengthscale_logprob(lengthscales, ndim):
-    raise config.not_ported("The DSLP lengthscale prior", "gp_options")
+    """Dimension-scaled lengthscale prior: LogNormal(sqrt2 + 0.5 log d,
+    sqrt3) per ARD lengthscale, summed over the last axis."""
+    loc = math.sqrt(2.0) + 0.5 * math.log(ndim)
+    return torch.sum(lognormal_logprob(lengthscales, loc, math.sqrt(3.0)),
+                     dim=-1)
 
 
 def saas_logprob(lengthscales, kernel_variance, tausq):

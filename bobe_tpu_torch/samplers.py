@@ -3,8 +3,9 @@ mean.
 
 Counterpart of ``bobe_tpu/samplers.py``:
 
-* ``nested_sampling(gp, mode=...)`` (static mode) runs the batched sampler
-  of infer/nested.py with the GP mean as the likelihood and returns the
+* ``nested_sampling(gp, mode=...)`` runs the batched sampler of
+  infer/nested.py (static, or ``dynamic=True``: a base run plus a
+  posterior-bulk batch) with the GP mean as the likelihood and returns the
   evidence with its GP-sigma bounds, the sampler error, and the
   hyperparameter-basin spread;
 * ``sample_gp_ensemble`` (infer/ehmc.py, the BO loop's default MC-pool
@@ -12,6 +13,13 @@ Counterpart of ``bobe_tpu/samplers.py``:
   fallback) sample the GP-mean posterior on the logit-transformed unit cube
   and return the JAX package's samples dict, whose ``warm_state`` (numpy
   arrays) seeds the next call of either package.
+
+Over a classifier-gated GP (models/clf_gp.py) every target is gated: the GP
+mean where the classifier says feasible, ``minus_inf`` elsewhere. Nested
+sampling then seeds its live set strictly inside the feasible region and
+starts its volume ledger at the log feasible fraction; the HMC targets are
+tempered as a whole, and a warm chain start that the retrained classifier
+now puts on the plateau rejects the warm path.
 
 The multi-device chain layout of the JAX package (``_maybe_shard_chains``,
 ``_mesh_aligned_chains``) is not ported: the chain count is used as given.
@@ -26,9 +34,10 @@ import torch
 from . import config
 from .infer import integrals
 from .infer.ehmc import run_ensemble
-from .infer.nested import merge_runs, run_nested
+from .infer.nested import merge_runs, run_nested, run_nested_dynamic
 from .infer.nuts import run_chain
 from .models import gp as gpm
+from .models.classifiers import predict_proba_apply
 from .utils.core import renormalise_log_weights, resample_equal
 from .utils.log import get_logger
 from .utils.seed import get_numpy_rng, new_torch_generator, split_generator
@@ -37,11 +46,20 @@ log = get_logger("sampler")
 
 
 def _gp_loglike(gp) -> Tuple:
-    """(apply_fn, ctx) for the GP mean: apply(ctx, x (m, d)) -> (m,)."""
-    if getattr(gp, "_clf_ctx", None) is not None:
-        raise config.not_ported("The classifier-gated surrogate", "clf")
+    """(apply_fn, ctx) for the GP mean, classifier-gated when the surrogate
+    carries an active classifier: apply(ctx, x (m, d)) -> (m,)."""
     cfg = gp.cfg
-    return (lambda state, x: gpm.predict_mean(state, cfg, x)), gp.state
+    clf = getattr(gp, "_clf_ctx", None)
+    if clf is None:
+        return (lambda state, x: gpm.predict_mean(state, cfg, x)), gp.state
+    proba = predict_proba_apply(gp.clf_type)
+
+    def apply(ctx, x):
+        state, params = ctx
+        return gp.gated(proba(params, x), gpm.predict_mean(state, cfg, x),
+                        gp.minus_inf)
+
+    return apply, (gp.state, clf)
 
 
 # ------------------------------------------------------------ nested sampling
@@ -119,18 +137,20 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
                     nlive: Optional[int] = None,
                     merge_with: Optional[list] = None, n_runs: int = 1,
                     **ns_kwargs) -> Tuple[Dict, Dict, bool]:
-    """Nested sampling over the GP surrogate (static mode).
+    """Nested sampling over the GP surrogate; ``dynamic=True`` adds a
+    posterior-bulk refinement batch to each run (infer/nested.py
+    ``run_nested_dynamic``).
 
     Returns (samples_dict, logz_dict, success): logz_dict carries
     mean/upper/lower/var/std/dlogz_sampler/h/dlogz_hyp/err_total; samples
     carry x/weights/logl/best/method and ``raw`` (the run's dead points for
     later merging). ``merge_with``: raw tuples of earlier runs on the same
     GP state, merged at the dead-point level. ``n_runs``: independent runs
-    at the same settings, merged. ``generator``: the torch generator of the
-    run (one is drawn from the global seed chain when None).
+    at the same settings, merged; over a classifier-gated GP each run seeds
+    its own live set, and the merged ledger starts at the runs' pooled
+    feasible fraction. ``generator``: the torch generator of the run (one is
+    drawn from the global seed chain when None).
     """
-    if dynamic:
-        raise config.not_ported("Dynamic nested sampling", "dynamic_ns")
     ndim = ndim if ndim is not None else gp.ndim
     nlive_default, dlogz_default, maxcall_default = ns_settings(mode, ndim)
     nlive = nlive if nlive is not None else nlive_default
@@ -153,16 +173,23 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
 
     live_x = live_logl = None
     logvol0, var_logvol0 = 0.0, 0.0
-    if getattr(gp, "use_clf", False):
-        raise config.not_ported("Classifier-gated live seeding", "clf")
+    gated = getattr(gp, "use_clf", False)
+    if gated:
+        live_x, live_logl, logvol0, var_logvol0 = _seed_live_points(
+            gp, loglike, nlive, ndim, rng)
 
+    runner = run_nested_dynamic if dynamic else run_nested
     n_runs = max(1, int(n_runs))
     gens = split_generator(gen, n_runs) if n_runs > 1 else [gen]
-    results = []
+    results, lv0s, vlv0s = [], [], []
     for i, g in enumerate(gens):
-        res = run_nested(apply_fn, ctx, ndim, g, nlive=nlive, dlogz=dlogz,
-                         maxcall=maxcall, live_x=live_x, live_logl=live_logl,
-                         rng=rng, logvol0=logvol0, **ns_kwargs)
+        if i > 0 and gated:
+            # each repeat an independent realisation, its own live seeding
+            live_x, live_logl, logvol0, var_logvol0 = _seed_live_points(
+                gp, loglike, nlive, ndim, rng)
+        res = runner(apply_fn, ctx, ndim, g, nlive=nlive, dlogz=dlogz,
+                     maxcall=maxcall, live_x=live_x, live_logl=live_logl,
+                     rng=rng, logvol0=logvol0, **ns_kwargs)
         msg = (f"NS ({mode}): {res.n_iter} outer / {res.n_inner} inner "
                f"iterations, {res.n_calls} surrogate calls, "
                f"{len(res.dead_logl)} points, quick logz={res.logz:.3f}")
@@ -172,9 +199,15 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
                         "from the merge")
             continue
         results.append(res)
+        lv0s.append(logvol0)
+        vlv0s.append(var_logvol0)
     if not results:  # every repeat failed: preserve single-run failure path
-        results = [res]
+        results, lv0s, vlv0s = [res], [logvol0], [var_logvol0]
     res = results[-1]
+    # pooled seed volume of the repeats: independent binomial estimates of
+    # one feasible fraction, the mean of the logs with variance / n
+    logvol0 = float(np.mean(lv0s))
+    var_logvol0 = float(np.mean(vlv0s)) / len(vlv0s)
 
     raws = [(np.asarray(r.dead_x), np.asarray(r.dead_logl),
              np.asarray(r.nlive_schedule, dtype=float), -np.inf)
@@ -188,7 +221,9 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
     else:
         raw = raws[0]
         dead_x, dead_logl, logvol_arr = res.dead_x, res.dead_logl, res.logvol
-        err_nlive = res.nlive
+        # a dynamic run's live count depends on the region: its per-death
+        # schedule is the error denominator
+        err_nlive = res.nlive_schedule if dynamic else res.nlive
 
     # ---- evidence + GP-uncertainty bounds
     var = gp.predict_var_batched(dead_x).cpu().numpy()
@@ -253,7 +288,8 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
     samples_dict = {"x": samples_x, "weights": weights, "logl": logl,
                     "best": best_pt, "method": "nested", "raw": raw,
                     "n_iter": int(sum(r.n_iter for r in results)),
-                    "n_inner": int(sum(r.n_inner for r in results))}
+                    "n_inner": int(sum(r.n_inner for r in results)),
+                    "n_calls": int(sum(r.n_calls for r in results))}
     return samples_dict, logz_dict, success
 
 
@@ -272,17 +308,27 @@ def get_hmc_settings(ndim, warmup_steps=None, num_samples=None, thinning=None):
 def _logprob_vg(gp, temp: float):
     """``vg(z) -> (logp (C,), grad (C, d))``: the target density on R^d,
     the logit-transformed Uniform(0, 1)^d prior plus the tempered GP mean,
-    with its gradient in closed form (models/gp.mean_value_and_grad_fn)."""
-    if getattr(gp, "_clf_ctx", None) is not None:
-        raise config.not_ported("The classifier-gated surrogate", "clf")
+    with its gradient in closed form (models/gp.mean_value_and_grad_fn).
+
+    Over a classifier-gated GP the mean is ``minus_inf`` where the
+    classifier says infeasible and its gradient there 0 (the gradient of
+    the hard gate), leaving the Jacobian term."""
     mean_vg = gpm.mean_value_and_grad_fn(gp.state, gp.cfg)
     temp = float(temp)
     softplus = torch.nn.functional.softplus
+    clf = getattr(gp, "_clf_ctx", None)
+    if clf is not None:
+        proba = predict_proba_apply(gp.clf_type)
+        thr, minus_inf = float(gp.probability_threshold), float(gp.minus_inf)
 
     def vg(z):
         nz = -z
         x, x_neg = torch.sigmoid(z), torch.sigmoid(nz)
         mean, g = mean_vg(x)
+        if clf is not None:
+            ok = proba(clf, x) >= thr
+            mean = torch.where(ok, mean, torch.full_like(mean, minus_inf))
+            g = g * ok[:, None].to(g.dtype)
         # log|dx/dz| = -(softplus(z) + softplus(-z)): finite where the
         # sigmoid saturates (log(x) + log1p(-x) is not); its gradient is
         # sigmoid(-z) - sigmoid(z), and dx/dz = x sigmoid(-z)
@@ -291,6 +337,18 @@ def _logprob_vg(gp, temp: float):
                 torch.addcmul(x_neg - x, g, x * x_neg, value=1.0 / temp))
 
     return vg
+
+
+def _plateau_frac_ok(vg, warm_state, gp, temp) -> float:
+    """Fraction of the cached chain ends still feasible. The classifier
+    retrains between refreshes and can strand ends on the ``minus_inf``
+    plateau, where the acceptance guard is blind; ``vg`` is tempered, so
+    the plateau sits near minus_inf / temp and so does the threshold."""
+    z = torch.as_tensor(np.array(warm_state["last_z"]), dtype=config.DTYPE,
+                        device=gp.device)
+    start_lp = vg(z)[0]
+    return float(torch.mean(
+        (start_lp > 0.5 * float(gp.minus_inf) / float(temp)).to(z.dtype)))
 
 
 def _cold_logit_inits(gp, num_chains, np_rng):
@@ -325,8 +383,8 @@ def _warm_kernel_tuple(warm_state, device):
 
 def _bundle_samples(gp, zs, diag, kind, num_chains, dense_mass, temp) -> Dict:
     """The samples dict of the JAX package (x / logp / best / method,
-    diagnostics, warm_state), in numpy. 'logp' is the untempered GP mean at
-    the samples."""
+    diagnostics, warm_state), in numpy. 'logp' is the untempered (and, over
+    a classifier-gated GP, gated) GP mean at the samples."""
     xs_t = torch.sigmoid(zs.reshape(-1, gp.ndim))
     xs = xs_t.cpu().numpy()
     logp = gp.predict_mean_batched(xs_t).cpu().numpy()
@@ -367,6 +425,11 @@ def sample_gp_nuts(gp, np_rng=None, generator: Optional[torch.Generator] = None,
     # default_kind="nuts": warm states without a 'kind' field are NUTS's
     warm_ok = _warm_state_matches(warm_state, "nuts", num_chains, gp.ndim,
                                   dense_mass, temp, default_kind="nuts")
+    if warm_ok and getattr(gp, "_clf_ctx", None) is not None and \
+            _plateau_frac_ok(vg, warm_state, gp, temp) < 1.0:
+        log.debug("warm NUTS rejected: a cached chain end now falls in "
+                  "the classifier's infeasible region")
+        warm_ok = False
     common = dict(num_samples=int(num_samples), thinning=int(thinning),
                   dense_mass=bool(dense_mass), max_depth=int(max_tree_depth))
     if warm_ok:
@@ -427,6 +490,14 @@ def sample_gp_ensemble(gp, np_rng=None,
                   dense_mass=bool(dense_mass), num_leapfrog=int(num_leapfrog))
     warm_ok = _warm_state_matches(warm_state, "ehmc", nc, gp.ndim,
                                   dense_mass, temp)
+    if warm_ok and getattr(gp, "_clf_ctx", None) is not None:
+        # the lockstep ensemble tolerates a few stranded chains (they
+        # re-enter during the re-adaptation): 0.9 where NUTS needs all
+        frac_ok = _plateau_frac_ok(vg, warm_state, gp, temp)
+        if frac_ok < 0.9:
+            log.debug(f"warm ensemble rejected: {1 - frac_ok:.0%} of chain "
+                      "ends now infeasible under the retrained classifier")
+            warm_ok = False
     if warm_ok:
         z0 = torch.as_tensor(np.array(warm_state["last_z"]),
                              dtype=config.DTYPE, device=gp.device)

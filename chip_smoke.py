@@ -33,9 +33,24 @@ non-zero):
    and to the JAX package's; the device launches per leapfrog step (the
    target's mean and gradient included) under torch.profiler;
 9. the final NUTS samples of a banana run that ends before any nested
-   sampling (min_evals > max_evals), timed.
+   sampling (min_evals > max_evals), timed (cut to 250 transitions per
+   dimension, from 2000);
+10. the classifier-gated state of the planck-like target (d=6, 300 seeded
+   points, the JAX package's fitted hyperparameters): the port's SVM
+   trained on it (and timed at n = 100, 250, 500), the gated live seeding's
+   feasible fraction against the JAX package's, a convergence-mode dynamic
+   NS against the JAX package's logZ, timed beside a static NS on the same
+   state, the wall and device launches per NS iteration of the gated GP and
+   of the plain GP of the same rows, and a cold gated ensemble-HMC pool
+   against the JAX package's moments;
+11. examples/planck_like_synthetic.py's run at its own settings
+   (use_clf=True, do_final_ns=True) with min_evals above max_evals=120, so
+   that it ends on the final fit, the dynamic NS and its top-up (cut to 3
+   merged runs in all, from 16); checked for its termination, a finite
+   logZ, an engaged classifier and final samples in the box, with its
+   timing ledger.
 
-The kernels' launch counts are set to 0 just before each of phases 4 to 9
+The kernels' launch counts are set to 0 just before each of phases 4 to 11
 and read just after; a phase that did not launch the forward kernel, or
 phase 6 without a backward launch, fails. The script prints the card's name
 and power limit, one JSON line describing every kernel, and as its last
@@ -113,6 +128,50 @@ JAX_NUTS_STD = [0.18524113815603163, 0.1909502709413334, 0.19631888962349942,
                 0.1982995888963466, 0.18779876025205416]
 # largest difference of a pool's per-dimension mean or std from another's
 POOL_ATOL = 0.05
+# phase 9's depth is cut to keep the script near 10 minutes: its final NUTS
+# takes 250 transitions per dimension (2 x 4 chains x 250 / 4 = 500 samples)
+# where a user's run takes 2000 (bo.FINAL_NUTS)
+FALLBACK_SAMPLES_PER_DIM = 250
+
+# ---- phase 10 reference of the JAX package, printed by the same tool: the
+# planck-like target at N_REF10 reference draws and N_UNIF10 uniform points
+# (failures at MINUS_INF10), the SVM-gated GP of BOBE(use_clf=True) fitted
+# once (4 restarts, maxiter 200); the feasible fraction of its live seeding
+# (500 live points, numpy seed 1) with the variance of its log, one
+# convergence-mode dynamic nested_sampling (numpy seed 2) and the moments of
+# a cold gated sample_gp_ensemble pool (512 samples)
+N_REF10, N_UNIF10, SEED10, MINUS_INF10 = 200, 100, 10, -1e10
+JAX_PLANCK = {
+    "planck_log_params": [
+        -0.2916060436059232, 1.609307182330881, -0.20078794254496668,
+        1.609363644235881, 1.6094368429851593, 1.6094372130721708,
+        9.460380583973471,
+    ],
+    "planck_gp_size": 209,
+    "planck_n_sv": 62,
+    "planck_f_hat": 0.17653333333333335,
+    "planck_var_logvol0": 0.0001554884189325277,
+    "planck_dyn_logz": 9.17189310608647,
+    "planck_dyn_dlogz_sampler": 0.11161919155706375,
+    "planck_ehmc_mean": [
+        0.5046465242581957, 0.5028851313363157, 0.5039918487053004,
+        0.5007602620319461, 0.49887375321722977, 0.4999037642738581,
+    ],
+    "planck_ehmc_std": [
+        0.0491809348893158, 0.03482696382646268, 0.05238355378371699,
+        0.03917535117733008, 0.03843047704848718, 0.05143024479747705,
+    ],
+}
+# the planck-like run of phase 11: examples/planck_like_synthetic.py's
+# settings, ended at max_evals (min_evals above it). Its depth is cut at the
+# final NS: the merged-run cap (BOBE_TPU_NS_BOOST_CAP) is 3 where a user's
+# run has 16, so the final pass is 2 dynamic runs and a 1-run static top-up
+# (each NS on the gated GP takes ~30 s of the card's launch-bound loop)
+PLANCK_NS_BOOST_CAP = 3
+PLANCK_RUN = dict(acq="wipstd", min_evals=1000, max_evals=120,
+                  max_gp_size=600, logz_threshold=0.05, fit_n_points=8,
+                  batch_size=4, ns_n_points=12, convergence_n_iters=2,
+                  do_final_ns=True)
 
 
 def _sync():
@@ -778,18 +837,25 @@ def phase_pools(device):
 def phase_fallback(device):
     """A banana run that ends before any nested sampling (min_evals above
     max_evals): the final samples come from NUTS at the JAX package's
-    settings (4 chains, warmup 512, 2000 transitions per dimension, every
-    4th kept), timed by the run's ledger ("MCMC Sampling", its last span)."""
+    settings (4 chains, warmup 512, every 4th transition kept) but for its
+    depth, FALLBACK_SAMPLES_PER_DIM transitions per dimension where a
+    user's run has bo.FINAL_NUTS's 2000; timed by the run's ledger ("MCMC
+    Sampling", its last span)."""
     import numpy as np
 
     from bobe_tpu_torch import bo
     from bobe_tpu_torch.models import toys
 
-    res, wall = _banana_run(device, min_evals=1000, max_evals=40)
+    saved = bo.FINAL_NUTS["samples_per_dim"]
+    bo.FINAL_NUTS["samples_per_dim"] = FALLBACK_SAMPLES_PER_DIM
+    try:
+        res, wall = _banana_run(device, min_evals=1000, max_evals=40)
+    finally:
+        bo.FINAL_NUTS["samples_per_dim"] = saved
     if res["logz"]:
         raise AssertionError("phase 9: the run reached nested sampling")
     x = res["samples"]["x"]
-    n = bo.FINAL_NUTS["num_chains"] * bo.FINAL_NUTS["samples_per_dim"] * 2 \
+    n = bo.FINAL_NUTS["num_chains"] * FALLBACK_SAMPLES_PER_DIM * 2 \
         // bo.FINAL_NUTS["thinning"]
     lo, hi = toys.banana_bounds
     if not (x.shape == (n, 2) and np.all((x >= lo) & (x <= hi))
@@ -807,6 +873,251 @@ def phase_fallback(device):
     print("[phase 9] timing ledger (s): " + json.dumps(
         {k: round(v, 3) for k, v in timing["phase_times"].items()}))
     return {"fallback_s": t_nuts, "wall_s": wall}
+
+
+def _planck_points(n_ref, n_unif, seed):
+    """Seeded planck-like points in the unit cube: n_ref reference draws
+    and n_unif uniform points, the failures at MINUS_INF10 (the data of
+    tools/torch_port_reference.py's phase 10 at its counts)."""
+    import numpy as np
+
+    from bobe_tpu_torch.models import toys
+    from bobe_tpu_torch.utils.core import scale_to_unit
+
+    loglike, bounds, _, _ = toys.make_planck_like()
+    rng = np.random.default_rng(seed)
+    ref_x, ref_y = toys.planck_like_ref_draws(loglike, bounds, n_ref, rng)
+    u = rng.uniform(size=(n_unif, bounds.shape[1]))
+    y = []
+    for p in bounds[0] + u * (bounds[1] - bounds[0]):
+        try:
+            y.append(loglike(p))
+        except RuntimeError:
+            y.append(MINUS_INF10)
+    return (np.vstack([scale_to_unit(ref_x, bounds), u]),
+            np.concatenate([ref_y, y]))
+
+
+def _clf_threshold(d):
+    from bobe_tpu_torch.utils.core import get_threshold_for_nsigma
+
+    return max(75.0, get_threshold_for_nsigma(20, d))
+
+
+def phase_planck_state(device):
+    """The classifier-gated planck-like state: the SVM, the gated live
+    seeding, a dynamic NS beside a static one, a cold gated EHMC pool."""
+    import numpy as np
+    import torch
+
+    from bobe_tpu_torch import samplers
+    from bobe_tpu_torch.models import classifiers
+    from bobe_tpu_torch.models.clf_gp import GPwithClassifier
+    from bobe_tpu_torch.models.gp import GP
+    from bobe_tpu_torch.utils.seed import set_global_seed
+
+    set_global_seed(0)
+    out = {}
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    x, y = _planck_points(N_REF10, N_UNIF10, SEED10)
+    thr = _clf_threshold(x.shape[1])
+    lp = np.asarray(JAX_PLANCK["planck_log_params"])
+    gp, t_build = _timed(lambda: GPwithClassifier(
+        train_x=x, train_y=y, clf_type="svm", minus_inf=MINUS_INF10,
+        clf_threshold=thr, gp_threshold=2 * thr, probability_threshold=0.5,
+        lengthscales=np.exp(lp[:-1]), kernel_variance=float(np.exp(lp[-1])),
+        device=device), device)
+    labels = np.where(y < y.max() - thr, 0, 1)
+    gate = gp._gate(x).cpu().numpy()
+    m = gp.clf_metrics
+    print(f"[phase 10a] GPwithClassifier on {len(x)} planck-like points "
+          f"(GP rows {gp.gp_size}, the JAX package's "
+          f"{JAX_PLANCK['planck_gp_size']}; cap {gp.state.cap}) built with "
+          f"its SVM in {t_build:.3f} s: {m['n_support_vectors']} support "
+          f"vectors (scikit-learn in the JAX package: "
+          f"{JAX_PLANCK['planck_n_sv']}), {m['smo_iterations']} SMO "
+          f"iterations, KKT violation {m['kkt_violation']:.2e} (tol 1e-3); "
+          f"the gate on {device} reproduces the labels of "
+          f"{np.mean(gate == labels):.4f} of the training points")
+    if not (gp._clf_ctx is not None and np.all(gate == labels)
+            and gp.gp_size == JAX_PLANCK["planck_gp_size"]
+            and m["kkt_violation"] < 1e-3):
+        raise AssertionError("phase 10a: the SVM does not separate its "
+                             "training labels, or the GP subset differs")
+    out["svm_s_by_n"] = {}
+    for n in (100, 250, 500):
+        xs, ys = _planck_points(n // 2, n - n // 2, 100 + n)
+        lab = np.where(ys < ys.max() - thr, 0, 1)
+        (params, met, pred), t = _timed(
+            lambda: classifiers.train_svm_classifier(xs, lab, device=device),
+            device)
+        ok = np.mean(pred(torch.as_tensor(xs, device=device)).cpu().numpy()
+                     == lab)
+        print(f"[phase 10a] SVM training at n={n}: {t:.3f} s, "
+              f"{met['smo_iterations']} SMO iterations, "
+              f"{met['n_support_vectors']} support vectors, training labels "
+              f"reproduced {ok:.4f}")
+        out["svm_s_by_n"][n] = t
+
+    # (b) the feasible fraction of the gated live seeding
+    apply, ctx = samplers._gp_loglike(gp)
+    (_, live_l, lv0, var0), t_seed = _timed(
+        lambda: samplers._seed_live_points(
+            gp, lambda q: apply(ctx, q), 500, x.shape[1],
+            np.random.default_rng(1)), device)
+    f_ref, var_ref = JAX_PLANCK["planck_f_hat"], JAX_PLANCK["planck_var_logvol0"]
+    dlog = lv0 - math.log(f_ref)
+    tol = 3.0 * math.sqrt(var0 + var_ref)
+    print(f"[phase 10b] gated live seeding {t_seed:.3f} s: f_hat "
+          f"{math.exp(lv0):.5f} (JAX package {f_ref:.5f}); log difference "
+          f"{dlog:+.4f}, 3 binomial sigma {tol:.4f}")
+    if abs(dlog) >= tol or not np.all(live_l > MINUS_INF10):
+        raise AssertionError("phase 10b: f_hat outside the binomial error "
+                             "of the JAX package's, or a live point on the "
+                             "plateau")
+    out.update(f_hat=math.exp(lv0), seed_s=t_seed)
+
+    # (c) dynamic NS against the JAX package's, timed beside a static NS
+    (ds, dz, dok), t_dyn = _timed(lambda: samplers.nested_sampling(
+        gp, mode="convergence", dynamic=True, rng=np.random.default_rng(2),
+        generator=gen(2)), device)
+    (ss, sz, sok), t_sta = _timed(lambda: samplers.nested_sampling(
+        gp, mode="convergence", rng=np.random.default_rng(2),
+        generator=gen(2)), device)
+    if not (dok and sok):
+        raise AssertionError("phase 10c: a nested sampling run failed")
+    s_jax = JAX_PLANCK["planck_dyn_dlogz_sampler"]
+    tol = 3.0 * math.sqrt(s_jax ** 2 + dz["dlogz_sampler"] ** 2) + 0.02
+    diff = dz["mean"] - JAX_PLANCK["planck_dyn_logz"]
+    for name, smp, z, t in (("dynamic", ds, dz, t_dyn),
+                            ("static", ss, sz, t_sta)):
+        print(f"[phase 10c] {name} convergence NS {t:.3f} s, "
+              f"{smp['n_calls']} surrogate calls, {smp['n_iter']} outer / "
+              f"{smp['n_inner']} inner iterations: logZ {z['mean']:.4f} +- "
+              f"{z['dlogz_sampler']:.4f} (sampler)")
+    print(f"[phase 10c] dynamic logZ - the JAX package's dynamic "
+          f"{JAX_PLANCK['planck_dyn_logz']:.4f} +- {s_jax:.4f}: "
+          f"{diff:+.4f}, tolerance {tol:.4f}")
+    if abs(diff) >= tol:
+        raise AssertionError(f"phase 10c: dynamic logZ differs from the JAX "
+                             f"package's by {diff:+.4f} (tolerance {tol:.4f})")
+    out.update(dyn_s=t_dyn, dyn_calls=ds["n_calls"], dyn_logz=dz["mean"],
+               dyn_dlogz_sampler=dz["dlogz_sampler"], static_s=t_sta,
+               static_calls=ss["n_calls"], static_logz=sz["mean"],
+               static_dlogz_sampler=sz["dlogz_sampler"])
+
+    # what the gate costs an NS inner iteration: a short NS (200 live
+    # points, 30,000 calls) on the gated GP and on the plain GP of the same
+    # rows, its wall and its device launches (torch.profiler) per iteration
+    for name, g in (("gated", gp), ("plain", GP.dummy_like(gp))):
+        holder = {}
+
+        def short():
+            holder["r"] = samplers.nested_sampling(
+                g, mode="convergence", nlive=200, maxcall=30000,
+                rng=np.random.default_rng(5), generator=gen(5),
+                warn_truncation=False)
+
+        _, t = _timed(short, device)
+        n_inner = holder["r"][0]["n_inner"]
+        n_launch = _device_launches(short)
+        per = "not measured" if n_launch is None else \
+            f"{n_launch / n_inner:.1f}"
+        print(f"[phase 10c] short NS on the {name} GP: {n_inner} inner "
+              f"iterations, {1e3 * t / n_inner:.3f} ms and {per} device "
+              "launches per inner iteration")
+        out[f"short_ns_{name}_ms_per_inner"] = 1e3 * t / n_inner
+
+    # (d) a cold gated ensemble-HMC pool
+    pool, t_pool = _timed(lambda: samplers.sample_gp_ensemble(
+        gp, np_rng=np.random.default_rng(3), generator=gen(3),
+        num_samples=512), device)
+    px = pool["x"]
+    mean, std = px.mean(0), px.std(0)
+    dm = float(np.max(np.abs(mean - JAX_PLANCK["planck_ehmc_mean"])))
+    dsd = float(np.max(np.abs(std - JAX_PLANCK["planck_ehmc_std"])))
+    feas = float(np.mean(pool["logp"] > MINUS_INF10))
+    print(f"[phase 10d] cold gated EHMC pool: {len(px)} samples in "
+          f"{t_pool:.3f} s, accept "
+          f"{float(pool['diagnostics']['mean_accept']):.3f}, feasible "
+          f"{feas:.4f}; vs the JAX package's: max |mean diff| {dm:.4f}, max "
+          f"|std diff| {dsd:.4f} (tolerance {POOL_ATOL})")
+    if not (dm < POOL_ATOL and dsd < POOL_ATOL and feas > 0.95):
+        raise AssertionError("phase 10d: the gated pool's moments differ "
+                             "from the JAX package's, or it left the "
+                             "feasible region")
+    out.update(pool_s=t_pool)
+    return out
+
+
+def phase_planck_run(device):
+    """examples/planck_like_synthetic.py's run, ended at max_evals=120 by
+    min_evals above it: the final fit, dynamic NS and top-up (its merged
+    runs capped at PLANCK_NS_BOOST_CAP)."""
+    import os
+
+    import numpy as np
+
+    from bobe_tpu_torch.bo import BOBE
+    from bobe_tpu_torch.models import toys
+
+    loglike, bounds, names, logz_true = toys.make_planck_like()
+    ref_x, ref_y = toys.planck_like_ref_draws(loglike, bounds, 8,
+                                              np.random.default_rng(3))
+    t0 = time.time()
+    bobe = BOBE(loglikelihood=loglike, param_list=names, param_bounds=bounds,
+                n_sobol_init=48, n_cobaya_init=0, init_train_x=ref_x,
+                init_train_y=ref_y, use_clf=True, clf_type="svm", seed=3,
+                save=False, verbosity="WARNING", device=device)
+    svm_s = []
+    train = bobe.gp.train_classifier
+
+    def timed_training():
+        t = time.perf_counter()
+        train()
+        svm_s.append((bobe.gp.clf_data_size, time.perf_counter() - t))
+
+    bobe.gp.train_classifier = timed_training
+    cap = os.environ.get("BOBE_TPU_NS_BOOST_CAP")
+    os.environ["BOBE_TPU_NS_BOOST_CAP"] = str(PLANCK_NS_BOOST_CAP)
+    try:
+        res = bobe.run(**PLANCK_RUN)
+    finally:
+        if cap is None:
+            del os.environ["BOBE_TPU_NS_BOOST_CAP"]
+        else:
+            os.environ["BOBE_TPU_NS_BOOST_CAP"] = cap
+    wall = time.time() - t0
+    gp, logz = res["gp"], res["logz"]
+    x, w = res["samples"]["x"], res["samples"]["weights"]
+    rm = res["results_manager"]
+    ledger = rm.get_timing_summary()["phase_times"]
+    print(f"[phase 11] planck-like run (d=6, use_clf svm, do_final_ns) on "
+          f"{device}: ended '{res['termination_reason']}' after "
+          f"{gp.clf_data_size} evaluations (GP rows {gp.gp_size}) in "
+          f"{wall:.2f} s; final dynamic NS logZ {logz.get('mean', np.nan):.4f} "
+          f"(truth {logz_true:.4f}), dlogz_sampler "
+          f"{logz.get('dlogz_sampler', np.nan):.4f}, err_total "
+          f"{logz.get('err_total', np.nan):.4f}, {len(x)} samples; the last "
+          f"Nested Sampling span {rm.last_timing('Nested Sampling'):.3f} s")
+    print("[phase 11] SVM training (n, s): " + json.dumps(
+        [(n, round(t, 4)) for n, t in svm_s]))
+    print("[phase 11] timing ledger (s): " + json.dumps(
+        {k: round(v, 3) for k, v in ledger.items()}))
+    if res["termination_reason"] != "Maximum evaluations reached":
+        raise AssertionError(f"phase 11: ended '{res['termination_reason']}'")
+    if not (logz and np.isfinite(logz["mean"])
+            and ledger.get("Nested Sampling", 0) > 0):
+        raise AssertionError(f"phase 11: no final dynamic NS evidence: {logz}")
+    if not (gp.clf_data_size > gp.gp_size and gp._clf_ctx is not None
+            and np.min(gp.train_y_clf) <= bobe.minus_inf):
+        raise AssertionError("phase 11: the classifier did not engage")
+    lo, hi = bounds
+    if not (np.all((x >= lo) & (x <= hi)) and np.all(w > 0)):
+        raise AssertionError("phase 11: final samples outside the box or "
+                             "with non-positive weights")
+    return {"wall_s": wall, "logz": logz["mean"], "n_evals": gp.clf_data_size,
+            "svm_s": svm_s, "ledger": ledger}
 
 
 def main():
@@ -850,7 +1161,9 @@ def main():
                        ("6", lambda: phase_fit_d30("cuda")),
                        ("7", lambda: phase_slice("cuda", label="7")),
                        ("8", lambda: phase_pools("cuda")),
-                       ("9", lambda: phase_fallback("cuda"))):
+                       ("9", lambda: phase_fallback("cuda")),
+                       ("10", lambda: phase_planck_state("cuda")),
+                       ("11", lambda: phase_planck_run("cuda"))):
         for c in counters:
             c.launches = 0
         res = results[label] = run()

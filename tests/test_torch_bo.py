@@ -1,13 +1,14 @@
 """The port end to end on the CPU: ``BOBE(...).run(acq="wipstd")`` with the
 default EHMC MC pool, with ``mc_points_method="NS"`` and ``"NUTS"``, and a
 run without a successful NS that falls back to final NUTS samples, on a 2-d
-Gaussian toy with an analytic evidence; and every branch the port has not
+Gaussian toy with an analytic evidence; a classifier-gated run
+(``use_clf=True``) on a 2-d toy with a failure region that ends on the
+final dynamic NS (``do_final_ns=True``); and every branch the port has not
 reached raising ``NotImplementedError`` with its ROADMAP item instead of
 running as something else.
 
-tests/test_bo_2d.py's runs of the JAX package use ``do_final_ns=True``, which
-the port does not have yet; these runs are its small-budget counterparts
-with a loose threshold, checked against the analytic logZ.
+These runs are small-budget counterparts of tests/test_bo_2d.py's with a
+loose threshold, checked against the analytic logZ.
 """
 import os
 
@@ -69,7 +70,7 @@ def test_slice_end_to_end_on_a_gaussian(tmp_path):
 
 
 @pytest.mark.parametrize("init_kw,item", [
-    ({"use_clf": True}, "clf"),
+    ({"gp_kwargs": {"lengthscale_prior": "SAAS"}}, "gp_options"),
     ({"resume": True}, "resume"),
     ({"server": "/tmp/bobe.sock"}, "server"),
     ({"pool": "multiprocess"}, "pools"),
@@ -121,7 +122,7 @@ def test_nuts_pool_run_converges(tmp_path):
 @pytest.mark.parametrize("run_kw,item", [
     ({"acq": "logei"}, "ei"),
     ({"acq": "ei"}, "ei"),
-    ({"mc_points_method": "NS", "do_final_ns": True}, "dynamic_ns"),
+    ({"acq": ("wipstd", "ei")}, "ei"),
 ])
 def test_unported_run_branches_raise(tmp_path, run_kw, item):
     bobe = _bobe(tmp_path, n_sobol_init=8, save=False)
@@ -174,3 +175,64 @@ def test_no_card_and_no_device_raises(tmp_path, monkeypatch):
         _bobe(tmp_path, device=None)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         GP(train_x=np.full((4, 2), 0.5), train_y=np.zeros(4))
+
+
+GATED_CENTER = np.array([0.55, 0.5])
+
+
+def _gated_loglike(x):
+    """A normalised Gaussian (sigma 0.1) whose likelihood code fails for
+    x0 < 0.3, 2.5 sigma from its peak: the adapter turns the failures into
+    minus_inf. Over the unit box logZ is the Gaussian mass in
+    [0.3, 1] x [0, 1]."""
+    x = np.asarray(x)
+    if x[0] < 0.3:
+        raise RuntimeError("the likelihood code failed")
+    return float(-0.5 * np.sum(((x - GATED_CENTER) / 0.1) ** 2)
+                 - np.log(2 * np.pi * 0.01))
+
+
+@pytest.mark.parametrize("clf_type", ["svm", "nn", "ellipsoid"])
+def test_clf_construction_trains_the_classifier(tmp_path, clf_type):
+    bobe = _bobe(tmp_path, loglikelihood=_gated_loglike, n_sobol_init=24,
+                 use_clf=True, clf_type=clf_type, save=False)
+    gp = bobe.gp
+    assert type(gp).__name__ == "GPwithClassifier" and gp.clf_type == clf_type
+    assert gp.use_clf and gp._clf_ctx is not None
+    assert gp.cfg.lengthscale_prior == "DSLP"
+    assert min(gp.train_y_clf) <= bobe.minus_inf < min(gp.train_y_raw)
+    assert gp.gp_size < gp.npoints == gp.clf_data_size
+
+
+def test_clf_run_ends_with_the_final_dynamic_ns(tmp_path):
+    """use_clf=True, do_final_ns=True and min_evals above max_evals: no NS
+    in the loop, so the run ends on the final fit, the dynamic NS and (when
+    the measured noise asks) the top-up, timed as "Nested Sampling"; the
+    classifier retrains after every batch ("Classifier Training")."""
+    from scipy.stats import norm
+
+    logz_true = float(np.log(norm.cdf(4.5) - norm.cdf(-2.5))
+                      + np.log(norm.cdf(5.0) - norm.cdf(-5.0)))
+    bobe = _bobe(tmp_path, loglikelihood=_gated_loglike, n_sobol_init=16,
+                 seed=3, use_clf=True, clf_type="svm", save=False)
+    results = bobe.run(acq="wipstd", min_evals=1000, max_evals=32,
+                       max_gp_size=200, logz_threshold=0.1, fit_n_points=4,
+                       batch_size=4, ns_n_points=8, do_final_ns=True)
+    logz = results["logz"]
+    assert np.isfinite(logz["mean"]) and logz["dlogz_sampler"] > 0
+    assert abs(logz["mean"] - logz_true) < 0.3, (logz, logz_true)
+    assert results["termination_reason"] in ("LogZ converged",
+                                             "Maximum evaluations reached")
+    rm = results["results_manager"]
+    info = rm.gp_info
+    assert info["classifier_used"] and info["classifier_type"] == "svm"
+    gp = results["gp"]
+    assert info["classifier_training_set_size"] == gp.clf_data_size == 32
+    assert gp.gp_size < gp.clf_data_size
+    assert min(gp.train_y_clf) <= bobe.minus_inf
+    samples = results["samples"]
+    assert samples["x"].min() >= 0.0 and samples["x"].max() <= 1.0
+    assert np.all(samples["weights"] > 0)
+    assert np.all(samples["x"][:, 0] >= 0.3 - 0.05)
+    timing = rm.get_timing_summary()["phase_times"]
+    assert timing["Nested Sampling"] > 0 and timing["Classifier Training"] > 0

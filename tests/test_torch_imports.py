@@ -57,3 +57,29 @@ def test_importing_the_port_adds_no_jax_module_and_builds_nothing():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"added": [], "lib": False, "built": False}
+
+
+def test_classifier_modules_import_neither_sklearn_nor_optax():
+    """The classifier path carries its own SVM solver (SMO) and trains with
+    torch.optim.AdamW: its modules name neither scikit-learn nor optax, and
+    importing them (and the samplers that gate with them) adds neither."""
+    for rel in ("models/classifiers.py", "models/clf_gp.py", "samplers.py",
+                "infer/nested.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        tops = {m.split(".")[0] for m in _imported_modules(tree)}
+        assert not tops & set(FORBIDDEN), (rel, tops & set(FORBIDDEN))
+    code = (
+        "import json, sys\n"
+        "before = set(sys.modules)\n"
+        "import bobe_tpu_torch.models.clf_gp, bobe_tpu_torch.samplers\n"
+        "added = sorted(m for m in set(sys.modules) - before\n"
+        "               if m.split('.')[0] in ('sklearn', 'optax', 'jax'))\n"
+        "print(json.dumps(added))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

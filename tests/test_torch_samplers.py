@@ -7,6 +7,13 @@ geometry, settings, live seeding) are compared on identical inputs at rtol
 its own keys, so a run is compared statistically: a GP state fitted by the
 JAX package is carried across, both packages run convergence-mode NS on it,
 and the two logZ agree within 3 combined sampler errors (``dlogz_sampler``).
+
+Over a classifier-gated GP (a JAX ``GPwithClassifier`` state carried across,
+fixed hyperparameters, noise 1e-6): the gated HMC target and its gradient
+against ``jax.grad`` of the JAX package's gated target at rtol 1e-9 on
+feasible and infeasible points, the gated live seeding (same numpy seed:
+the same feasible fraction and live set), one gated EHMC transition fed the
+JAX package's own draws at rtol 1e-9, and the warm-path plateau guard.
 """
 import jax
 import jax.numpy as jnp
@@ -16,12 +23,18 @@ import torch
 
 import bobe_tpu  # noqa: F401  (float64 in JAX)
 from bobe_tpu import samplers as jsamp
+from bobe_tpu.infer import ehmc as jehmc
 from bobe_tpu.infer import integrals as jint
 from bobe_tpu.infer import nested as jnest
+from bobe_tpu.infer import nuts as jnuts
+from bobe_tpu.models import clf_gp as jcgp
 from bobe_tpu.models import gp as jgp
+from bobe_tpu.utils import seed as jseed
 from bobe_tpu_torch import samplers as tsamp
+from bobe_tpu_torch.infer import ehmc as tehmc
 from bobe_tpu_torch.infer import integrals as tint
 from bobe_tpu_torch.infer import nested as tnest
+from bobe_tpu_torch.infer import nuts as tnuts
 from bobe_tpu_torch.models import gp as tgp
 from bobe_tpu_torch.utils.seed import set_global_seed
 
@@ -162,5 +175,155 @@ def test_repeated_runs_merge_and_tighten_the_sampler_error(jax_gaussian_gp):
                                        rng=np.random.default_rng(7))
     assert ok1 and ok3
     assert z3["dlogz_sampler"] < z1["dlogz_sampler"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsamp.nested_sampling(tg, dynamic=True)
+    # dynamic=True is ported: a base run plus a posterior-bulk batch
+    dyn, zd, okd = tsamp.nested_sampling(tg, mode="convergence", nlive=100,
+                                         dynamic=True,
+                                         rng=np.random.default_rng(8))
+    assert okd and np.isfinite(zd["mean"]) and dyn["n_iter"] > 0
+    assert abs(zd["mean"] - np.log(2 * np.pi * 0.15**2)) < 0.3
+
+
+# ------------------------------------------------------- gated surrogates
+
+GATED_MINUS_INF = -1e5
+
+
+@pytest.fixture(scope="module")
+def gated_gps():
+    """The JAX package's SVM-gated GP (a bump with a failure region at
+    x0 > 0.7, fixed hyperparameters, noise 1e-6) and the port's from its
+    state dict."""
+    rng = np.random.default_rng(11)
+    x = rng.uniform(size=(60, 2))
+    y = -30.0 * np.sum((x - np.array([0.45, 0.5])) ** 2, axis=1)
+    y = np.where(x[:, 0] > 0.7, GATED_MINUS_INF, y)
+    jseed.set_global_seed(2)
+    jg = jcgp.GPwithClassifier(
+        train_x=x, train_y=y, clf_type="svm", noise=1e-6,
+        lengthscales=np.array([0.35, 0.4]), kernel_variance=2.0,
+        clf_use_size=10, minus_inf=GATED_MINUS_INF, clf_threshold=100.0,
+        gp_threshold=200.0)
+    assert jg._clf_ctx is not None
+    return jg, tgp.state_from_numpy(jg.state_dict(), device="cpu")
+
+
+def _jax_gated_vg(jg, temp):
+    apply = jsamp._nuts_logprob_apply(jg.cfg, True,
+                                      float(jg.probability_threshold),
+                                      float(jg.minus_inf), jg.clf_type,
+                                      float(temp))
+    ctx = (jg.state, jg._clf_ctx)
+    return jax.vmap(jax.value_and_grad(lambda z: apply(ctx, z))), apply, ctx
+
+
+def _gated_z(seed, n=64):
+    """Logits of points over the whole box (both sides of the gate), a
+    quarter of them near saturation."""
+    rng = np.random.default_rng(seed)
+    u = np.clip(rng.uniform(size=(n, 2)), 1e-3, 1 - 1e-3)
+    z = np.log(u) - np.log1p(-u)
+    z[: n // 4] = rng.choice([-1.0, 1.0], size=(n // 4, 2)) * rng.uniform(
+        20.0, 35.0, size=(n // 4, 2))
+    return z
+
+
+@pytest.mark.parametrize("temp", [1.0, 2.5])
+def test_gated_target_value_and_grad_match_jax(gated_gps, temp):
+    """The gated tempered target and its closed-form gradient against
+    ``jax.grad`` through the JAX package's hard gate: on the plateau the
+    value is minus_inf / temp plus the Jacobian and only the Jacobian's
+    gradient remains. rtol 1e-9 plus 1e-9 of the largest gradient
+    component (tests/test_torch_ehmc.py states why)."""
+    jg, tg = gated_gps
+    z = _gated_z(3)
+    jvg, _, _ = _jax_gated_vg(jg, temp)
+    jl, jgr = jvg(jnp.asarray(z))
+    tl, tgr = tsamp._logprob_vg(tg, temp)(torch.as_tensor(z))
+    jl, jgr = np.asarray(jl), np.asarray(jgr)
+    infeasible = jl < 0.5 * GATED_MINUS_INF / temp
+    assert 0 < infeasible.sum() < len(z)
+    np.testing.assert_allclose(tl.numpy(), jl, rtol=RTOL)
+    np.testing.assert_allclose(tgr.numpy(), jgr, rtol=RTOL,
+                               atol=1e-9 * np.abs(jgr).max())
+    # the plateau's gradient is the Jacobian's alone: sigmoid(-z) - sigmoid(z)
+    x = 1.0 / (1.0 + np.exp(-z[infeasible]))
+    np.testing.assert_allclose(tgr.numpy()[infeasible], 1.0 - 2.0 * x,
+                               rtol=RTOL, atol=1e-15)
+
+
+def test_gated_seed_live_points_match_jax(gated_gps):
+    """Same numpy seed, same gate: the same feasible fraction (the ledger
+    start log f_hat and its variance) and the same live set, strictly above
+    the plateau."""
+    jg, tg = gated_gps
+    japply, jctx = jsamp._gp_loglike(jg)
+    tapply, tctx = tsamp._gp_loglike(tg)
+    jl = jsamp._seed_live_points(jg, lambda x: japply(jctx, x), 100, 2,
+                                 np.random.default_rng(4))
+    tl = tsamp._seed_live_points(tg, lambda x: tapply(tctx, x), 100, 2,
+                                 np.random.default_rng(4))
+    np.testing.assert_array_equal(tl[0], jl[0])
+    np.testing.assert_allclose(tl[1], jl[1], rtol=RTOL)
+    assert tl[2] == jl[2] and tl[3] == jl[3]
+    assert -1.0 < tl[2] < -0.05 and np.all(tl[1] > GATED_MINUS_INF)
+
+
+def test_gated_ensemble_transition_with_jax_draws_matches_jax(gated_gps):
+    """One 6-leapfrog gated EHMC transition of 16 chains, some starting on
+    the plateau, fed the JAX package's momentum normals and accept
+    uniforms: the same chains move, to the same states."""
+    jg, tg = gated_gps
+    d, C = 2, 16
+    z0 = _gated_z(5, n=C) * 0.5
+    jvg, _, _ = _jax_gated_vg(jg, 1.0)
+    tvg = tsamp._logprob_vg(tg, 1.0)
+    jmass = jnuts.MassMatrix(jnp.eye(d), jnp.eye(d))
+    tmass = tnuts.MassMatrix(torch.eye(d, dtype=torch.float64),
+                             torch.eye(d, dtype=torch.float64))
+    key = jax.random.PRNGKey(9)
+    jl, jgr = jvg(jnp.asarray(z0))
+    assert np.any(np.asarray(jl) < 0.5 * GATED_MINUS_INF)
+    jout = jehmc._ensemble_transition(jvg, key, jnp.asarray(z0), jl, jgr,
+                                      0.3, 6, jmass, True)
+    k_mom, k_acc = jax.random.split(key)
+    noise = jax.vmap(lambda k: jax.random.normal(k, (d,), dtype=jnp.float64))(
+        jax.random.split(k_mom, C))
+    u = jax.random.uniform(k_acc, (C,), dtype=jnp.float64)
+    Z = torch.as_tensor(z0)
+    L, G = tvg(Z)
+    tout = tehmc._ensemble_transition(
+        tvg, torch.as_tensor(np.asarray(noise)),
+        torch.log(torch.as_tensor(np.asarray(u))), Z, L, G,
+        torch.tensor(0.3, dtype=torch.float64), 6, tmass, True)
+    for g, w in zip(tout, jout):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=1e-12)
+    assert np.any(np.any(tout[0].numpy() != z0, axis=1))
+
+
+def test_gated_warm_path_plateau_guard_matches_jax(gated_gps):
+    """The fraction of cached chain ends still feasible equals the JAX
+    package's; an ensemble warm state mostly on the plateau is rejected
+    for a cold start, and the pool's logp is the gated mean."""
+    jg, tg = gated_gps
+    nc = 64
+    rng = np.random.default_rng(6)
+    u = np.column_stack([rng.uniform(0.75, 0.99, nc), rng.uniform(size=nc)])
+    u[:8, 0] = 0.45
+    last_z = np.log(u) - np.log1p(-u)
+    ws = {"last_z": last_z, "step_size": 0.3, "mass_inv": np.eye(2),
+          "mass_chol": np.eye(2), "kind": "ehmc", "num_chains": nc,
+          "ndim": 2, "dense_mass": True, "temp": 1.0}
+    _, apply, ctx = _jax_gated_vg(jg, 1.0)
+    want = jsamp._plateau_frac_ok(apply, ctx, ws, jg, 1.0)
+    got = tsamp._plateau_frac_ok(tsamp._logprob_vg(tg, 1.0), ws, tg, 1.0)
+    assert got == want and got < 0.9
+    out = tsamp.sample_gp_ensemble(tg, np_rng=np.random.default_rng(7),
+                                   generator=torch.Generator().manual_seed(7),
+                                   num_samples=256, warm_state=ws)
+    assert not out["diagnostics"]["warm"]
+    np.testing.assert_allclose(out["logp"],
+                               tg.predict_mean_batched(out["x"]).numpy(),
+                               rtol=RTOL)
+    # the pool lives in the feasible region
+    assert np.mean(out["logp"] > GATED_MINUS_INF) > 0.95

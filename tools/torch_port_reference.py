@@ -1,4 +1,5 @@
-"""Reference numbers of the JAX package for chip_smoke.py, phases 5, 6 and 8.
+"""Reference numbers of the JAX package for chip_smoke.py, phases 5, 6, 8
+and 10.
 
 Runs the JAX package (bobe_tpu) on the CPU:
 
@@ -14,12 +15,20 @@ Runs the JAX package (bobe_tpu) on the CPU:
 3. on examples/gaussian_30d.py's target (d=30, sigma 0.12) at N=1200 seeded
    uniform points with 1 % target noise (capacity 1280, above the fit's
    per-dimension budget, so every objective rebuilds the Gram matrix),
-   ``GP(noise=1e-8).fit(x0, maxiter=20)`` from four seeded restarts.
+   ``GP(noise=1e-8).fit(x0, maxiter=20)`` from four seeded restarts;
+4. on the planck-like target (models/toys.make_planck_like, d=6) at 300
+   seeded points (200 reference draws, 100 uniform, the failures at
+   -1e10), the classifier-gated GP of ``BOBE(use_clf=True)`` (SVM,
+   thresholds of clf_nsigma_threshold=20 at d=6, DSLP prior) fitted once
+   (4 restarts, maxiter 200); on it the gated live seeding's feasible
+   fraction f_hat (500 live points, numpy seed 1), one convergence-mode
+   dynamic ``nested_sampling`` (numpy seed 2) and a cold gated
+   ``sample_gp_ensemble`` pool (512 samples) reduced to its moments.
 
 It prints one JSON line: the fitted log-hyperparameters, each fit's final
-negative MLL, the NS logZ with its ``dlogz_sampler`` and the pools' moments;
-chip_smoke.py carries them as constants and holds the PyTorch port to them
-on the card.
+negative MLL, the NS logZ with its ``dlogz_sampler``, the pools' moments and
+the planck-like numbers; chip_smoke.py carries them as constants and holds
+the PyTorch port to them on the card.
 
     JAX_PLATFORMS=cpu python tools/torch_port_reference.py
 """
@@ -41,6 +50,8 @@ import numpy as np  # noqa: E402
 N_TRAIN, NDIM, N_RESTARTS, MAXITER, SEED = 1024, 8, 4, 30, 0
 # the d=30 fit above the per-dimension budget (chip_smoke.py phase 6)
 N30, D30, SIGMA30, MAXITER30, SEED30 = 1200, 30, 0.12, 20, 30
+# the planck-like classifier-gated state (chip_smoke.py phase 10)
+N_REF10, N_UNIF10, SEED10, MINUS_INF10 = 200, 100, 10, -1e10
 
 
 def make_data():
@@ -66,6 +77,68 @@ def make_data_d30(make_gaussian):
     y = np.array([loglike(p) for p in x]) + 0.01 * rng.normal(size=N30)
     x0_extra = rng.uniform(np.log(0.05), np.log(3.0), size=(3, D30 + 1))
     return x, y, x0_extra
+
+
+def make_data_planck(toys, scale_to_unit):
+    """chip_smoke.py phase 10's data: N_REF10 reference draws and N_UNIF10
+    uniform points of the planck-like target in the unit cube, the
+    likelihood's failures at MINUS_INF10."""
+    loglike, bounds, _, _ = toys.make_planck_like()
+    rng = np.random.default_rng(SEED10)
+    ref_x, ref_y = toys.planck_like_ref_draws(loglike, bounds, N_REF10, rng)
+    u = rng.uniform(size=(N_UNIF10, bounds.shape[1]))
+    y = []
+    for p in bounds[0] + u * (bounds[1] - bounds[0]):
+        try:
+            y.append(loglike(p))
+        except RuntimeError:
+            y.append(MINUS_INF10)
+    return (np.vstack([scale_to_unit(ref_x, bounds), u]),
+            np.concatenate([ref_y, y]))
+
+
+def planck_reference():
+    """The phase 10 numbers of the JAX package on its gated planck-like
+    state."""
+    from bobe_tpu.models import toys
+    from bobe_tpu.models.clf_gp import GPwithClassifier
+    from bobe_tpu.samplers import (_gp_loglike, _seed_live_points,
+                                   nested_sampling, sample_gp_ensemble)
+    from bobe_tpu.utils.core import get_threshold_for_nsigma, scale_to_unit
+
+    x, y = make_data_planck(toys, scale_to_unit)
+    clf_threshold = max(75.0, get_threshold_for_nsigma(20, x.shape[1]))
+    gp = GPwithClassifier(train_x=x, train_y=y, clf_type="svm",
+                          minus_inf=MINUS_INF10, clf_threshold=clf_threshold,
+                          gp_threshold=2 * clf_threshold,
+                          probability_threshold=0.5)
+    t0 = time.time()
+    gp.fit(n_restarts=4, maxiter=200, rng=np.random.default_rng(0))
+    t_fit = time.time() - t0
+    log_params = np.log(np.r_[np.asarray(gp.lengthscales),
+                              gp.kernel_variance])
+    apply, ctx = _gp_loglike(gp)
+    _, _, logvol0, var0 = _seed_live_points(
+        gp, lambda q: apply(ctx, q), 500, x.shape[1],
+        np.random.default_rng(1))
+    t0 = time.time()
+    _, logz, ok = nested_sampling(gp, mode="convergence", dynamic=True,
+                                  rng=np.random.default_rng(2))
+    t_ns = time.time() - t0
+    pool = sample_gp_ensemble(gp, np_rng=np.random.default_rng(3),
+                              rng_key=jax.random.PRNGKey(3), num_samples=512)
+    return {"planck_log_params": log_params.tolist(),
+            "planck_gp_size": int(gp.state.n),
+            "planck_n_sv": int(gp.clf_metrics["n_support_vectors"]),
+            "planck_f_hat": float(np.exp(logvol0)),
+            "planck_var_logvol0": float(var0),
+            "planck_dyn_ns_success": bool(ok),
+            "planck_dyn_logz": float(logz["mean"]),
+            "planck_dyn_dlogz_sampler": float(logz["dlogz_sampler"]),
+            "planck_ehmc_mean": np.mean(pool["x"], axis=0).tolist(),
+            "planck_ehmc_std": np.std(pool["x"], axis=0).tolist(),
+            "cpu_seconds_planck_fit": t_fit,
+            "cpu_seconds_planck_dyn_ns": t_ns}
 
 
 def main():
@@ -122,7 +195,8 @@ def main():
         **pools, "cpu_seconds_pools": t_pools,
         "d30_fit_neg_mll": -float(info30["mll"]),
         "d30_log_params": np.asarray(info30["params"]).tolist(),
-        "cpu_seconds_fit_d30": t_fit30}))
+        "cpu_seconds_fit_d30": t_fit30,
+        **planck_reference()}))
 
 
 if __name__ == "__main__":
