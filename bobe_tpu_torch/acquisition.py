@@ -1,7 +1,10 @@
-"""Evidence-weighted acquisition: WIPV / WIPStd.
+"""Acquisition functions: EI / LogEI and the evidence-weighted WIPV / WIPStd.
 
 Counterpart of ``bobe_tpu/acquisition.py`` (same classes and methods):
 
+* EI/LogEI restarts are lanes of one lockstep L-BFGS on the unit cube
+  (half from random points, classifier-aware for a gated GP, half from the
+  incumbent, all jittered);
 * the WIP sweep over the MC pool is one batched computation
   (ops/fantasy.wip_sweep): one triangular solve and one matrix product for
   all candidates;
@@ -10,7 +13,8 @@ Counterpart of ``bobe_tpu/acquisition.py`` (same classes and methods):
 * a batch is chosen greedily: by GP-mean hallucination below
   ``REFINE_MAX_N``, by rank-1 downdates of the pool covariance above it.
 
-EI/LogEI and the EHMC/NUTS MC pools are not ported yet and raise.
+Under the GP's input warp the kernel math runs in warp space; the points
+the functions return stay raw.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from . import config
 from .models import gp as gpm
 from .ops import optimize as opt_ops
+from .ops.special import ei_helper, log_ei_helper
 from .ops.fantasy import (
     fantasy_var_single,
     posterior_batch,
@@ -38,39 +43,67 @@ log = get_logger("acq")
 REFINE_MAX_N = 500
 
 
+def _ei_objective_core(gp, x0, best_y: float, zeta: float, use_log: bool,
+                       maxiter: int):
+    """Minimize -EI (or -logEI) from each restart x0 (R, d) as lanes of one
+    bounded L-BFGS on the unit cube. Returns (best_x (d,), best_f)."""
+    st, cfg = gp.state, gp.cfg
+    floor = 1e-18 if use_log else 1e-20
+
+    def neg_ei(X):
+        mean, var = gpm.predict_raw(st, cfg, X)
+        sigma = torch.sqrt(torch.clamp(var, min=floor))
+        u = (mean - zeta - best_y) / sigma
+        if use_log:
+            return -(log_ei_helper(u) + torch.log(sigma))
+        return -(ei_helper(u) * sigma)
+
+    return opt_ops.minimize_restarts(neg_ei, x0, bounds=(0.0, 1.0),
+                                     method="lbfgs", maxiter=maxiter)
+
+
 def _wip_sweep_core(gp, mc_points, use_std: bool):
-    """Full-pool WIP sweep. Returns (acq_vals, V, var)."""
+    """Full-pool WIP sweep in warp space (the identity unless the GP warps
+    its inputs). Returns (acq_vals, V, var)."""
     st, cfg = gp.state, gp.cfg
     ls, amp = torch.exp(st.log_ls), torch.exp(st.log_amp)
-    V, var = posterior_batch(cfg.kernel, st.x, st.mask(), st.chol, mc_points,
-                             ls, amp, cfg.noise)
-    acq = wip_sweep(cfg.kernel, mc_points, V, var, ls, amp, cfg.noise,
+    mc_w = gpm.query_coords(st, cfg, mc_points)
+    V, var = posterior_batch(cfg.kernel, gpm.train_coords(st, cfg), st.mask(),
+                             st.chol, mc_w, ls, amp, cfg.noise)
+    acq = wip_sweep(cfg.kernel, mc_w, V, var, ls, amp, cfg.noise,
                     st.y_std, use_std)
     return acq, V, var
 
 
 def _wip_batch_core(gp, mc_points, use_std: bool, n_batch: int):
     """Fused greedy batch: posterior solve + n_batch rank-1 downdate
-    selections."""
+    selections, in warp space; the points returned are raw (the likelihood
+    evaluates them)."""
     st, cfg = gp.state, gp.cfg
     ls, amp = torch.exp(st.log_ls), torch.exp(st.log_amp)
-    V, var = posterior_batch(cfg.kernel, st.x, st.mask(), st.chol, mc_points,
-                             ls, amp, cfg.noise)
-    idx, vals = wip_greedy_batch(cfg.kernel, mc_points, V, var, ls, amp,
+    mc_w = gpm.query_coords(st, cfg, mc_points)
+    V, var = posterior_batch(cfg.kernel, gpm.train_coords(st, cfg), st.mask(),
+                             st.chol, mc_w, ls, amp, cfg.noise)
+    idx, vals = wip_greedy_batch(cfg.kernel, mc_w, V, var, ls, amp,
                                  cfg.noise, st.y_std, use_std, n_batch)
     return mc_points[idx], vals
 
 
 def _wip_refine_core(gp, x0, mc_points, V, var, use_std: bool, maxiter: int):
     """Local polish of the best pool candidate by L-BFGS on the fantasy
-    variance (differentiated through with autograd)."""
+    variance (differentiated through with autograd). V, var and the
+    Cholesky factor live in warp space, so the candidate is warped too; the
+    optimization variable stays raw and the warp is differentiated."""
     st, cfg = gp.state, gp.cfg
     ls, amp = torch.exp(st.log_ls), torch.exp(st.log_amp)
     mask = st.mask()
+    x_tr = gpm.train_coords(st, cfg)
+    mc_w = gpm.query_coords(st, cfg, mc_points)
 
     def objective(x):
-        fv = fantasy_var_single(cfg.kernel, st.x, mask, st.chol, x,
-                                mc_points, V, var, ls, amp, cfg.noise)
+        x_w = gpm.query_coords(st, cfg, x[None, :])[0]
+        fv = fantasy_var_single(cfg.kernel, x_tr, mask, st.chol, x_w,
+                                mc_w, V, var, ls, amp, cfg.noise)
         if use_std:
             return torch.mean(torch.sqrt(fv)) * st.y_std
         return torch.mean(fv) * st.y_std**2
@@ -133,18 +166,56 @@ class AcquisitionFunction:
 
 
 class EI(AcquisitionFunction):
-    """Expected Improvement (not ported yet)."""
+    """Expected Improvement: EI(x) = E[max(f(x) - best - zeta, 0)]."""
 
     name = "EI"
+    _use_log = False
 
-    def __init__(self, *args, **kwargs):
-        raise config.not_ported(f"The {self.name} acquisition", "ei")
+    def fun(self, x, gp, best_y, zeta):
+        mean, var = gp.predict_single(x)
+        sigma = torch.sqrt(torch.clamp(var, min=1e-20))
+        u = (mean - zeta - best_y) / sigma
+        return (-(ei_helper(u) * sigma)).reshape(())
+
+    def get_next_point(self, gp, acq_kwargs=None, maxiter=250, n_restarts=20,
+                       verbose=True, early_stop_patience=25, rng=None):
+        rng = rng if rng is not None else get_numpy_rng()
+        acq_kwargs = dict(acq_kwargs or {})
+        zeta = float(acq_kwargs.get("zeta", 0.0))
+        train_y = gp.train_y.reshape(-1).cpu().numpy()
+        best_y = acq_kwargs.get("best_y")
+        if best_y is None:
+            best_y = float(train_y.max()) if gp.npoints > 0 else 0.0
+        best_x = gp.train_x[int(np.argmax(train_y))].cpu().numpy()
+
+        # restart seeding: half random (classifier-aware for a gated GP),
+        # half the incumbent, all jittered
+        if n_restarts > 1:
+            n_rand = n_restarts // 2
+            x0 = np.vstack([gp.get_random_point(rng, nstd=5)
+                            for _ in range(n_rand)])
+            x0 = np.vstack([x0, np.tile(best_x, (n_restarts - n_rand, 1))])
+        else:
+            x0 = best_x[None, :]
+        x0 = np.clip(x0 + rng.normal(0.0, 0.005, size=x0.shape), 0.0, 1.0)
+
+        x, f = _ei_objective_core(
+            gp, torch.as_tensor(x0, dtype=config.DTYPE, device=gp.device),
+            float(best_y), zeta, self._use_log, int(maxiter))
+        return x.cpu().numpy(), -float(f)
 
 
 class LogEI(EI):
-    """Log Expected Improvement (not ported yet)."""
+    """Log Expected Improvement (Ament et al. 2023, arXiv:2310.20708)."""
 
     name = "LogEI"
+    _use_log = True
+
+    def fun(self, x, gp, best_y, zeta):
+        mean, var = gp.predict_single(x)
+        sigma = torch.sqrt(torch.clamp(var, min=1e-18))
+        u = (mean - zeta - best_y) / sigma
+        return (-(log_ei_helper(u) + torch.log(sigma))).reshape(())
 
 
 class WeightedIntegratedPosteriorBase(AcquisitionFunction):

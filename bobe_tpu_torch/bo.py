@@ -5,8 +5,10 @@ Counterpart of ``bobe_tpu/bo.py``: construct with a likelihood, call
 that is actively refined by evidence-weighted acquisition.
 
 The port runs the WIPV/WIPStd loop with an EHMC (the default), NUTS, NS or
-uniform MC pool, over a plain GP or, with ``use_clf=True``, a
-classifier-gated one (models/clf_gp.py):
+uniform MC pool, and the EI/LogEI optimization loop, over a plain GP or,
+with ``use_clf=True``, a classifier-gated one (models/clf_gp.py), with the
+GP's options (``gp_kwargs``: the input warp, the SAAS prior) and its fit's
+``optimizer`` ('lbfgs', 'adam' or 'scipy'):
 
 * initial design = scrambled Sobol (+ user points), deduped, scaled to the
   unit cube;
@@ -20,14 +22,19 @@ classifier-gated one (models/clf_gp.py):
 * ``do_final_ns=True`` on a run that did not converge: a final fit, a
   dynamic NS of merged runs and a top-up to the measured sampler noise;
 * without a successful NS in the run, final posterior samples from NUTS;
+* EI/LogEI: one point per iteration, ended when the acquisition's value
+  stays below ``ei_goal`` for ``convergence_n_iters`` checks;
+* ``resume=True``: the GP file and the run's results of an earlier run (of
+  either package) are loaded and the run continues from its last
+  iteration, or ends at once if it had converged below the new threshold;
 * the results dict and the result files of the JAX package.
 
 The GP state lives on ``device`` (``config.get_device()``, cuda, by default;
 without a card the constructor raises unless given ``device="cpu"``);
-likelihood evaluations run on the host through the evaluation pool. Every
-branch the port has not reached yet (EI/LogEI, resume, Cobaya, the server,
-the multiprocess/distributed pools) raises ``NotImplementedError`` naming
-its ROADMAP item.
+likelihood evaluations run on the host through the evaluation pool (in
+process, or in worker processes with ``pool="multiprocess"``). Every branch
+the port has not reached yet (Cobaya, the server, the distributed pool)
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -36,9 +43,10 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from . import config
-from .acquisition import WIPV, WIPStd, get_mc_samples
+from .acquisition import EI, WIPV, LogEI, WIPStd, get_mc_samples
 from .likelihood import CobayaLikelihood, Likelihood
 from .models.clf_gp import GPwithClassifier
 from .models.gp import GP
@@ -52,7 +60,7 @@ from .utils.seed import get_numpy_rng, new_torch_generator, set_global_seed
 
 log = get_logger("bo")
 
-_ACQ_FUNCS = {"wipv": WIPV, "wipstd": WIPStd}
+_ACQ_FUNCS = {"ei": EI, "logei": LogEI, "wipv": WIPV, "wipstd": WIPStd}
 _MC_METHODS = ("EHMC", "NUTS", "NS", "uniform")
 # largest nlive multiplier of the final NS passes and their top-up (see
 # _ns_boost): the environment's BOBE_TPU_NS_BOOST_CAP, as in the JAX
@@ -68,6 +76,13 @@ def ns_boost_cap() -> int:
 # warmup transitions, 2000 transitions per dimension, every 4th kept
 FINAL_NUTS = {"num_chains": 4, "warmup_steps": 512, "samples_per_dim": 2000,
               "thinning": 4}
+
+
+def load_gp_file(filename: str, clf: bool, device=None):
+    """The GP (or classifier GP) saved as ``filename`` (.npz) by either
+    package, on ``device``."""
+    cls = GPwithClassifier if clf else GP
+    return cls.load(filename, device=device)
 
 
 class BOBE:
@@ -106,8 +121,6 @@ class BOBE:
         update_verbosity(verbosity)
         if server is not None or os.environ.get("BOBE_TPU_SERVER"):
             raise config.not_ported("The device server", "server")
-        if resume or resume_file is not None:
-            raise config.not_ported("Resume", "resume")
         self.device = config.resolve_device(device)
 
         self.pool = make_pool(pool) if isinstance(pool, str) else pool
@@ -116,6 +129,50 @@ class BOBE:
             likelihood_name, minus_inf)
         self.ndim = len(self.loglikelihood.param_list)
 
+        try:
+            self._setup_main_process(seed, optimizer, save, save_dir,
+                                     save_step, n_cobaya_init, n_sobol_init,
+                                     acq, use_clf, clf_type,
+                                     clf_nsigma_threshold, minus_inf, resume)
+            if resume:
+                # without a file, a resume continues from this run's own
+                # save path
+                self._handle_resume(resume_file if resume_file is not None
+                                    else self.save_path, use_clf)
+            if self.fresh_start:
+                train_x, train_y = self._get_initial_training_data(
+                    n_sobol_init, init_train_x, init_train_y)
+                clf = ({"clf_type": clf_type, "clf_use_size": clf_use_size,
+                        "clf_update_step": clf_update_step,
+                        "clf_nsigma_threshold": clf_nsigma_threshold}
+                       if use_clf else None)
+                self._initialize_gp(train_x, train_y, optimizer,
+                                    dict(gp_kwargs or {}), clf)
+        except BaseException:
+            self.pool.close()
+            raise
+
+        # best-point bookkeeping (a resumed run keeps the better of its
+        # results' best value and the GP's)
+        y_raw = self.gp.train_y_raw.cpu().numpy()
+        idx = int(np.argmax(y_raw))
+        self.best_pt = np.asarray(scale_from_unit(
+            self.gp.train_x[idx].cpu().numpy(),
+            self.loglikelihood.param_bounds)).reshape(-1)
+        best_from_gp = float(y_raw[idx])
+        if best_from_gp > getattr(self, "best_f", -np.inf):
+            self.best_f = best_from_gp
+        self.best = {n: f"{float(v):.6f}"
+                     for n, v in zip(self.loglikelihood.param_list, self.best_pt)}
+        log.info(f"Initial best point {self.best} with value = {self.best_f:.6f}")
+        if self.save:
+            self.gp.save(f"{self.save_path}_gp")
+        self.prev_samples = None
+
+    def _setup_main_process(self, seed, optimizer, save, save_dir, save_step,
+                            n_cobaya_init, n_sobol_init, acq, use_clf,
+                            clf_type, clf_nsigma_threshold, minus_inf,
+                            resume):
         set_global_seed(seed)
         self.np_rng = get_numpy_rng()
         self.output_file = self.loglikelihood.name
@@ -137,32 +194,40 @@ class BOBE:
                       "minus_inf": minus_inf, "seed": seed,
                       "device": str(self.device)},
             likelihood_name=self.loglikelihood.name,
-            resume_from_existing=False)
+            resume_from_existing=resume)
+        self.fresh_start = not resume
         self.start_iteration = 0
         self.best_pt_iteration = 0
+        self.prev_converged = False
+        self.prev_convergence_delta = None
 
-        train_x, train_y = self._get_initial_training_data(
-            n_sobol_init, init_train_x, init_train_y)
-        clf = ({"clf_type": clf_type, "clf_use_size": clf_use_size,
-                "clf_update_step": clf_update_step,
-                "clf_nsigma_threshold": clf_nsigma_threshold}
-               if use_clf else None)
-        self._initialize_gp(train_x, train_y, optimizer,
-                            dict(gp_kwargs or {}), clf)
-
-        # best-point bookkeeping
-        y_raw = self.gp.train_y_raw.cpu().numpy()
-        idx = int(np.argmax(y_raw))
-        self.best_pt = np.asarray(scale_from_unit(
-            self.gp.train_x[idx].cpu().numpy(),
-            self.loglikelihood.param_bounds)).reshape(-1)
-        self.best_f = float(y_raw[idx])
-        self.best = {n: f"{float(v):.6f}"
-                     for n, v in zip(self.loglikelihood.param_list, self.best_pt)}
-        log.info(f"Initial best point {self.best} with value = {self.best_f:.6f}")
-        if self.save:
-            self.gp.save(f"{self.save_path}_gp")
-        self.prev_samples = None
+    def _handle_resume(self, resume_file, use_clf):
+        """Load ``<resume_file>_gp.npz`` (either package's) and restore the
+        start iteration, the best value and the earlier convergence from the
+        run's results; on any error, log it and start fresh."""
+        gp_file = resume_file + "_gp"
+        try:
+            log.info(f"Attempting to resume from {gp_file}")
+            self.gp = load_gp_file(gp_file, use_clf, device=self.device)
+            _ = self.gp.predict_mean_single(self.gp.train_x[0])
+            log.info(f"Loaded GP with {self.gp.npoints} points")
+            rm = self.results_manager
+            if rm.is_resuming():
+                self.start_iteration = rm.get_last_iteration()
+                if rm.best_loglike_values:
+                    self.best_f = max(rm.best_loglike_values)
+                    i = rm.best_loglike_values.index(self.best_f)
+                    self.best_pt_iteration = rm.best_loglike_iterations[i]
+                if rm.converged and rm.convergence_history:
+                    last = rm.convergence_history[-1]
+                    self.prev_converged = True
+                    self.prev_convergence_delta = last.delta
+                    log.info(f"Previous run converged with "
+                             f"delta={last.delta:.6f}")
+            self.fresh_start = False
+        except Exception as e:
+            log.error(f"Failed to resume from {gp_file}: {e}; starting fresh")
+            self.fresh_start = True
 
     # ------------------------------------------------------------------ init
 
@@ -313,6 +378,22 @@ class BOBE:
             return True
         return False
 
+    def check_convergence_ei(self, step, acq_val) -> bool:
+        val = np.asarray(acq_val, dtype=np.float64).reshape(-1)[-1]
+        if self.acquisition.name.lower() == "ei":
+            val = np.log(val + 1e-100)
+        if val < self.ei_goal_log:
+            self.convergence_counter += 1
+            if self.convergence_counter >= self.convergence_n_iters:
+                log.info(f"{self.acquisition.name} convergence achieved after "
+                         f"{self.convergence_n_iters} successive iterations")
+                return True
+            log.info(f"{self.acquisition.name} convergence iteration "
+                     f"{self.convergence_counter}/{self.convergence_n_iters}")
+            return False
+        self.convergence_counter = 0
+        return False
+
     def check_convergence_logz(self, step, logz_dict, equal_samples,
                                equal_logl, verbose=True,
                                save_checkpoint=True) -> bool:
@@ -407,21 +488,43 @@ class BOBE:
             mc_points_size: int = 64, thinning: Optional[int] = None,
             num_chains: Optional[int] = None,
             mc_points_method: str = "EHMC", zeta_ei: float = 0.01):
-        # unported branches raise before any work is done
         acqs = [acq] if isinstance(acq, str) else list(acq)
         for a in acqs:
-            if a.lower() in ("ei", "logei"):
-                raise config.not_ported(f"The {a} acquisition", "ei")
             if a.lower() not in _ACQ_FUNCS:
                 raise ValueError(f"Invalid acquisition '{a}'; options: "
-                                 f"{list(_ACQ_FUNCS) + ['ei', 'logei']}")
+                                 f"{list(_ACQ_FUNCS)}")
         if mc_points_method not in _MC_METHODS:
             raise ValueError(f"Unknown MC sample method '{mc_points_method}'")
         try:
             self.min_evals, self.max_evals = min_evals, max_evals
             self.max_gp_size, self.logz_threshold = max_gp_size, logz_threshold
             self.samples_dict, self.results_dict = {}, {}
+
+            # a resumed run that had converged below this threshold ends
+            # here, with no likelihood call
+            if self.prev_converged and self.prev_convergence_delta is not None:
+                if self.prev_convergence_delta < logz_threshold:
+                    log.info("Previous run already converged below the new "
+                             "threshold; skipping the BO loop")
+                    rm = self.results_manager
+                    self.converged = True
+                    self.termination_reason = \
+                        "Already converged in previous run"
+                    if rm.convergence_history:
+                        self.results_dict["logz"] = dict(
+                            rm.convergence_history[-1].logz_dict)
+                    if rm.final_samples is not None:
+                        self.samples_dict = {"x": rm.final_samples,
+                                             "weights": rm.final_weights,
+                                             "logl": rm.final_loglikes}
+                    self.finalise_results()
+                    return self.results_dict
+                log.info("Previous run converged above the new threshold; "
+                         "continuing")
+
             self.convergence_n_iters = convergence_n_iters
+            self.ei_goal_log = np.log(ei_goal)
+            self.zeta_ei = zeta_ei
             self.do_final_ns = do_final_ns
             self.fit_n_points, self.ns_n_points = fit_n_points, ns_n_points
             self.batch_size = batch_size
@@ -448,8 +551,13 @@ class BOBE:
 
             self.current_iteration = self.start_iteration
             for a in acqs:
-                self.run_weighted_integrated_posterior(
-                    _ACQ_FUNCS[a.lower()], ii=self.current_iteration)
+                if a.lower() in ("wipv", "wipstd"):
+                    self.run_weighted_integrated_posterior(
+                        _ACQ_FUNCS[a.lower()], ii=self.current_iteration)
+                else:
+                    self.acquisition = _ACQ_FUNCS[a.lower()](
+                        optimizer=self.optimizer)
+                    self.run_EI(ii=self.current_iteration)
 
             log.info(f"Final best point {self.best} with value = "
                      f"{self.best_f:.6f} (iteration {self.best_pt_iteration})")
@@ -460,6 +568,40 @@ class BOBE:
             self.pool.close()
 
     # ----------------------------------------------------------------- loops
+
+    def run_EI(self, ii: int = 0):
+        """The EI/LogEI loop: one point per iteration (50 restarts), the GP
+        updated, until the acquisition goal (check_convergence_ei), the
+        evaluation budget or the GP size ends it."""
+        current_evals = self.gp.npoints
+        self.convergence_counter = 0  # successive checks count per phase
+        converged = False
+        while not converged:
+            ii += 1
+            log.info(f"Iteration {ii} of {self.acquisition.name}, "
+                     f"objective evals {current_evals}/{self.max_evals}")
+            best_y = (float(torch.max(self.gp.train_y))
+                      if self.gp.gp_size else 0.0)
+            acq_kwargs = {"zeta": self.zeta_ei, "best_y": best_y}
+            new_pts_u, acq_vals = self.get_next_batch(
+                acq_kwargs, n_batch=1, n_restarts=50, maxiter=300,
+                early_stop_patience=50, step=ii)
+            new_vals = self.evaluate_likelihood(new_pts_u, ii)
+            current_evals += 1
+            self.update_gp(new_pts_u, new_vals, step=ii)
+            self.results_manager.update_best_loglike(ii, self.best_f)
+            converged = self.check_convergence_ei(ii, acq_vals)
+            if self.save and ii % self.save_step == 0:
+                self.results_manager.save_intermediate(gp=self.gp)
+            if converged:
+                self.termination_reason = \
+                    f"{self.acquisition.name.upper()} goal reached"
+                self.results_dict["termination_reason"] = \
+                    self.termination_reason
+                break
+            if self.check_max_evals_and_gpsize(current_evals):
+                break
+        self.current_iteration = ii
 
     def _ns_boost(self, dlogz_s: float, lo: int) -> int:
         """nlive multiplier (as a count of merged base-nlive runs) that

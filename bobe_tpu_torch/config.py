@@ -70,14 +70,10 @@ PREDICT_CHUNK = 16384
 
 # Work that the port has not reached yet, by its ROADMAP.md queue-1 entry.
 ROADMAP_ITEMS = {
-    "ei": "1. EI/LogEI",
-    "gp_options": "2. the SAAS prior and the input warp (with the Gram "
-                  "kernel's gradient in x)",
-    "rect_gram": "3. rectangular masked K(X, Xq) kernel",
-    "resume": "4. resume and plots",
-    "cobaya": "5. Cobaya",
-    "pools": "6. Multiprocess/Distributed pools and multi-GPU",
-    "server": "7. server",
+    "rect_gram": "1. rectangular masked K(X, Xq) kernel",
+    "cobaya": "2. Cobaya",
+    "pools": "3. the Distributed pool and multi-GPU",
+    "server": "4. server",
 }
 
 

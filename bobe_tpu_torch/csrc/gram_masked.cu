@@ -1,5 +1,6 @@
 // Masked, padded GP Gram matrix on Hopper (sm_90a): a tiled symmetric
-// forward over restart lanes, and its backward in the hyperparameters.
+// forward over restart lanes, and its backward in the hyperparameters and,
+// on request, in the coordinates.
 //
 // The forward replaces bobe_tpu/ops/pallas_gram.py::gram_masked_pallas
 // (kernel body _gram_kernel). For each restart lane r it computes
@@ -9,7 +10,11 @@
 //
 // with corr the RBF exp(-r^2 / 2) or the Matern-5/2
 // (1 + sqrt5 r + 5/3 r^2) exp(-sqrt5 r). Pad rows (m_i = 0) come out as the
-// identity, so the padded Cholesky factor is [[L, 0], [0, I]].
+// identity, so the padded Cholesky factor is [[L, 0], [0, I]]. The
+// coordinates x are (cap, d), shared by every lane, or (lanes, cap, d), one
+// set per lane (the input warp: each restart lane warps the training points
+// with its own parameters); the kernels take a lane stride on x, 0 or
+// cap * d.
 //
 // The backward has no TPU counterpart (the TPU kernel has no custom_vjp;
 // the JAX package differentiates its XLA Gram build instead). Given
@@ -20,6 +25,12 @@
 //   dL/dl_rk  = l_rk^-3 sum_ij G_ij Kc_ij D_ijk^2                (RBF)
 //   dL/dl_rk  = l_rk^-3 sum_ij G_ij amp m_i m_j (5/3)(1 + sqrt5 r) e^{-sqrt5 r} D_ijk^2
 //                                                               (Matern-5/2)
+//
+// and, when the caller asks for it (the input warp differentiates through
+// the warped coordinates), with W_ij = (G_ij + G_ji) amp_r m_i m_j c'_ij
+// and c' = corr (RBF) or (5/3)(1 + sqrt5 r) e^{-sqrt5 r} (Matern-5/2),
+//
+//   dL/dx_rik = -l_rk^-2 (x_ik sum_j W_ij - sum_j W_ij x_jk)
 //
 // Design.
 // * Tiles. A block owns one 64x64 output tile pair (bi >= bj) of one lane;
@@ -50,6 +61,22 @@
 //   dimensions again for sum W (xs_i - xs_j)^2. Block partials go to a
 //   scratch buffer that a second kernel sums in a fixed order: no atomics,
 //   so two launches give bit-identical gradients.
+// * The coordinate gradient rides the same dimension loop (a template flag,
+//   so the hyperparameter-only kernel is compiled without it). Every entry
+//   (i, j) of a tile adds w (xs_i - xs_j) to row i and w (xs_j - xs_i) to
+//   row j: a tile pair holds G_ij + G_ji off the diagonal and G_ij on it,
+//   so either way row i collects sum_j W_ij (xs_i - xs_j). A block writes
+//   its tile's row sums (a shuffle over the 16 threads of a row) and column
+//   sums (a shuffle over the warp's two rows, then 8 warps through shared
+//   memory) as partials: lanes * pairs * 2 * 64 * d doubles. A third kernel
+//   folds the T partials of each row (tile pairs (t, 0..t) as rows,
+//   (t..T-1, t) as columns) in a fixed order: no atomics, bit-identical
+//   launches, and pad rows exactly 0 (their w is 0).
+//   Why partials and not blocks that own a row tile and walk every column
+//   tile (no scratch): that layout does every distinct pair twice and
+//   launches lanes * T blocks, 48 at the planck-like warp fit's cap 384 with
+//   8 lanes on a card of 132 SMs, where the pair layout launches 168 and the
+//   scratch stays at 1 MB there (26 MB at cap 1280, d=30, 4 lanes).
 //
 // What bounds it: at cap 1024, d=8, f64 the forward stores 8.4 MB (2.5 us
 // at 3.35 TB/s) and does about (3d + 20) f64 operations on each of the
@@ -221,7 +248,7 @@ template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads)
 gram_masked_fwd(const T* __restrict__ x, const T* __restrict__ mask,
                 const T* __restrict__ ls, const T* __restrict__ amp, T noise,
-                T* __restrict__ out, int cap, int d) {
+                T* __restrict__ out, int cap, int d, size_t x_stride) {
   __shared__ Smem<T> sm;
   const int lane = blockIdx.y;
   int bi, bj;
@@ -230,8 +257,8 @@ gram_masked_fwd(const T* __restrict__ x, const T* __restrict__ mask,
   const int tx = threadIdx.x % kEdge, ty = threadIdx.x / kEdge;
 
   T acc[kMicro][kMicro];
-  sq_dist_tile(sm, x, ls + static_cast<size_t>(lane) * d, i0, j0, cap, d, tx,
-               ty, acc);
+  sq_dist_tile(sm, x + lane * x_stride, ls + static_cast<size_t>(lane) * d,
+               i0, j0, cap, d, tx, ty, acc);
 
   const T a_amp = amp[lane];
   T mj[kMicro];
@@ -293,17 +320,22 @@ __device__ __forceinline__ double warp_sum(double v) {
 
 // Block partials of the backward: part[(lane * (d + 1) + c) * npairs + p],
 // c < d the lengthscale sums (before the 1/l factor), c = d the amplitude.
-template <int KIND>
+// With DX, also the coordinate partials of the tile's rows (side 0) and
+// columns (side 1): dxpart[(((lane * npairs + p) * 2 + side) * d + k) * 64
+// + r], sum_j w (xs_rk - xs_jk) before the -1/l factor.
+template <int KIND, bool DX>
 __global__ void __launch_bounds__(kThreads)
 gram_masked_bwd_partials(const double* __restrict__ x,
                          const double* __restrict__ mask,
                          const double* __restrict__ ls,
                          const double* __restrict__ amp,
                          const double* __restrict__ g,
-                         double* __restrict__ part, int cap, int d,
-                         int npairs) {
+                         double* __restrict__ part,
+                         double* __restrict__ dxpart, int cap, int d,
+                         int npairs, size_t x_stride) {
   __shared__ Smem<double> sm;
   __shared__ double red[kWarps][kChunk];
+  __shared__ double red_col[DX ? kWarps : 1][DX ? kTile : 1];
   const int lane = blockIdx.y;
   const int p = blockIdx.x;
   int bi, bj;
@@ -313,7 +345,11 @@ gram_masked_bwd_partials(const double* __restrict__ x,
   const int warp = threadIdx.x / 32, lane_id = threadIdx.x % 32;
   const double* gl = g + static_cast<size_t>(lane) * cap * cap;
   const double* lsl = ls + static_cast<size_t>(lane) * d;
+  const double* xl = x + lane * x_stride;
   double* pl = part + static_cast<size_t>(lane) * (d + 1) * npairs + p;
+  double* dxl = DX ? dxpart + (static_cast<size_t>(lane) * npairs + p) * 2 *
+                             d * kTile
+                   : nullptr;
 
   // w = G_ij (+ G_ji off the diagonal tiles), 0 outside the matrix
   double w[kMicro][kMicro];
@@ -344,7 +380,7 @@ gram_masked_bwd_partials(const double* __restrict__ x,
   }
 
   double acc[kMicro][kMicro];
-  sq_dist_tile(sm, x, lsl, i0, j0, cap, d, tx, ty, acc);
+  sq_dist_tile(sm, xl, lsl, i0, j0, cap, d, tx, ty, acc);
 
   const double a_amp = amp[lane];
   double amp_sum = 0.0;
@@ -373,7 +409,7 @@ gram_masked_bwd_partials(const double* __restrict__ x,
   for (int k0 = 0; k0 < d; k0 += kChunk) {
     const int kc = min(kChunk, d - k0);
     __syncthreads();  // red, and the panels of the last chunk, are free
-    if (n_chunks > 1) load_panels(sm, x, lsl, i0, j0, cap, d, k0, kc);
+    if (n_chunks > 1) load_panels(sm, xl, lsl, i0, j0, cap, d, k0, kc);
     for (int k = 0; k < kc; ++k) {
       double ri[kMicro], cj[kMicro];
 #pragma unroll
@@ -381,16 +417,51 @@ gram_masked_bwd_partials(const double* __restrict__ x,
 #pragma unroll
       for (int b = 0; b < kMicro; ++b) cj[b] = sm.panel.col[k][tx + kEdge * b];
       double s = 0.0;
+      double rs[kMicro], cs[kMicro];
+#pragma unroll
+      for (int a = 0; a < kMicro; ++a) rs[a] = cs[a] = 0.0;
 #pragma unroll
       for (int a = 0; a < kMicro; ++a) {
 #pragma unroll
         for (int b = 0; b < kMicro; ++b) {
           const double diff = ri[a] - cj[b];
           s = fma(w[a][b], diff * diff, s);
+          if (DX) {
+            const double wd = w[a][b] * diff;
+            rs[a] += wd;
+            cs[b] -= wd;
+          }
         }
       }
       s = warp_sum(s);
       if (lane_id == 0) red[warp][k] = s;
+      if (DX) {
+        // rows: the 16 threads of a row are one half-warp (tx = lane % 16)
+#pragma unroll
+        for (int a = 0; a < kMicro; ++a) {
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            rs[a] += __shfl_xor_sync(0xffffffffu, rs[a], off);
+        }
+        double* dk = dxl + static_cast<size_t>(k0 + k) * kTile;
+        if (tx == 0) {
+#pragma unroll
+          for (int a = 0; a < kMicro; ++a) dk[ty + kEdge * a] = rs[a];
+        }
+        // columns: the warp's two rows by a shuffle, then the 8 warps
+#pragma unroll
+        for (int b = 0; b < kMicro; ++b) {
+          cs[b] += __shfl_xor_sync(0xffffffffu, cs[b], 16);
+          if (lane_id < kEdge) red_col[warp][tx + kEdge * b] = cs[b];
+        }
+        __syncthreads();
+        if (threadIdx.x < kTile) {
+          double v = 0.0;
+          for (int wp = 0; wp < kWarps; ++wp) v += red_col[wp][threadIdx.x];
+          dk[static_cast<size_t>(d) * kTile + threadIdx.x] = v;
+        }
+        __syncthreads();
+      }
     }
     __syncthreads();
     if (threadIdx.x < kc) {
@@ -439,6 +510,36 @@ gram_masked_bwd_reduce(const double* __restrict__ part,
   }
 }
 
+// dL/dx of the rows of tile blockIdx.x in lane blockIdx.y: the row
+// partials of tile pairs (t, 0..t), then the column partials of
+// (t..T-1, t), in that fixed order, times -1/l. grad_x is (lanes, cap, d).
+__global__ void __launch_bounds__(kThreads)
+gram_masked_bwd_reduce_dx(const double* __restrict__ dxpart,
+                          const double* __restrict__ ls,
+                          double* __restrict__ grad_x, int cap, int d,
+                          int npairs) {
+  const int t = blockIdx.x, lane = blockIdx.y;
+  const int n_t = num_tiles(cap);
+  const double* base = dxpart + static_cast<size_t>(lane) * npairs * 2 * d *
+                                    kTile;
+  for (int idx = threadIdx.x; idx < kTile * d; idx += kThreads) {
+    const int k = idx / kTile, r = idx - k * kTile;
+    const int i = t * kTile + r;
+    if (i >= cap) continue;
+    double v = 0.0;
+    for (int bj = 0; bj <= t; ++bj) {
+      const int p = t * (t + 1) / 2 + bj;
+      v += base[(static_cast<size_t>(p) * 2 * d + k) * kTile + r];
+    }
+    for (int bi = t; bi < n_t; ++bi) {
+      const int p = bi * (bi + 1) / 2 + t;
+      v += base[((static_cast<size_t>(p) * 2 + 1) * d + k) * kTile + r];
+    }
+    const size_t at = static_cast<size_t>(lane) * d + k;
+    grad_x[(static_cast<size_t>(lane) * cap + i) * d + k] = -v / ls[at];
+  }
+}
+
 int tile_pairs(int cap) {
   const int t = num_tiles(cap);
   return t * (t + 1) / 2;
@@ -446,18 +547,19 @@ int tile_pairs(int cap) {
 
 template <typename T>
 int launch_forward(const T* x, const T* mask, const T* ls, const T* amp,
-                   double noise, T* out, int cap, int d, int lanes, int kind,
-                   void* stream) {
+                   double noise, T* out, int cap, int d, int lanes,
+                   int x_per_lane, int kind, void* stream) {
   if (cap <= 0 || d <= 0 || lanes <= 0 || lanes > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(tile_pairs(cap), lanes);
+  const size_t xs = x_per_lane ? static_cast<size_t>(cap) * d : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == 0) {
     gram_masked_fwd<T, 0><<<grid, kThreads, 0, s>>>(x, mask, ls, amp,
-                                                    T(noise), out, cap, d);
+                                                    T(noise), out, cap, d, xs);
   } else if (kind == 1) {
     gram_masked_fwd<T, 1><<<grid, kThreads, 0, s>>>(x, mask, ls, amp,
-                                                    T(noise), out, cap, d);
+                                                    T(noise), out, cap, d, xs);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -470,42 +572,50 @@ int launch_forward(const T* x, const T* mask, const T* ls, const T* amp,
 // lanes * (d + 1) * bobe_gram_tile_pairs(cap) doubles.
 extern "C" int bobe_gram_tile_pairs(int cap) { return tile_pairs(cap); }
 
-// kind: 0 = RBF, 1 = Matern-5/2. ls is (lanes, d), amp (lanes,), out
+// Output tile edge (the coordinate partials hold this many rows a side).
+extern "C" int bobe_gram_tile() { return kTile; }
+
+// kind: 0 = RBF, 1 = Matern-5/2. x is (cap, d) (x_per_lane = 0) or
+// (lanes, cap, d) (x_per_lane = 1), ls (lanes, d), amp (lanes,), out
 // (lanes, cap, cap). Returns the cudaError_t of the launch.
 extern "C" int bobe_gram_masked_f64(const double* x, const double* mask,
                                     const double* ls, const double* amp,
                                     double noise, double* out, int cap, int d,
-                                    int lanes, int kind, void* stream) {
+                                    int lanes, int x_per_lane, int kind,
+                                    void* stream) {
   return launch_forward<double>(x, mask, ls, amp, noise, out, cap, d, lanes,
-                                kind, stream);
+                                x_per_lane, kind, stream);
 }
 
 extern "C" int bobe_gram_masked_f32(const float* x, const float* mask,
                                     const float* ls, const float* amp,
                                     double noise, float* out, int cap, int d,
-                                    int lanes, int kind, void* stream) {
+                                    int lanes, int x_per_lane, int kind,
+                                    void* stream) {
   return launch_forward<float>(x, mask, ls, amp, noise, out, cap, d, lanes,
-                               kind, stream);
+                               x_per_lane, kind, stream);
 }
 
-// g is dL/dK (lanes, cap, cap); part is scratch of
-// lanes * (d + 1) * bobe_gram_tile_pairs(cap) doubles; writes grad_ls
-// (lanes, d) and grad_amp (lanes,). Returns the first launch error.
-extern "C" int bobe_gram_masked_backward_f64(
-    const double* x, const double* mask, const double* ls, const double* amp,
-    const double* g, double* part, double* grad_ls, double* grad_amp, int cap,
-    int d, int lanes, int kind, void* stream) {
+namespace {
+
+template <bool DX>
+int launch_backward(const double* x, const double* mask, const double* ls,
+                    const double* amp, const double* g, double* part,
+                    double* dxpart, double* grad_ls, double* grad_amp,
+                    double* grad_x, int cap, int d, int lanes, int x_per_lane,
+                    int kind, void* stream) {
   if (cap <= 0 || d <= 0 || lanes <= 0 || lanes > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int npairs = tile_pairs(cap);
+  const size_t xs = x_per_lane ? static_cast<size_t>(cap) * d : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(npairs, lanes);
   if (kind == 0) {
-    gram_masked_bwd_partials<0><<<grid, kThreads, 0, s>>>(
-        x, mask, ls, amp, g, part, cap, d, npairs);
+    gram_masked_bwd_partials<0, DX><<<grid, kThreads, 0, s>>>(
+        x, mask, ls, amp, g, part, dxpart, cap, d, npairs, xs);
   } else if (kind == 1) {
-    gram_masked_bwd_partials<1><<<grid, kThreads, 0, s>>>(
-        x, mask, ls, amp, g, part, cap, d, npairs);
+    gram_masked_bwd_partials<1, DX><<<grid, kThreads, 0, s>>>(
+        x, mask, ls, amp, g, part, dxpart, cap, d, npairs, xs);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -513,5 +623,37 @@ extern "C" int bobe_gram_masked_backward_f64(
   if (err != cudaSuccess) return static_cast<int>(err);
   gram_masked_bwd_reduce<<<dim3(d + 1, lanes), kThreads, 0, s>>>(
       part, ls, grad_ls, grad_amp, d, npairs);
+  if (DX) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gram_masked_bwd_reduce_dx<<<dim3(num_tiles(cap), lanes), kThreads, 0,
+                                s>>>(dxpart, ls, grad_x, cap, d, npairs);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// g is dL/dK (lanes, cap, cap); part is scratch of
+// lanes * (d + 1) * bobe_gram_tile_pairs(cap) doubles; writes grad_ls
+// (lanes, d) and grad_amp (lanes,). Returns the first launch error.
+extern "C" int bobe_gram_masked_backward_f64(
+    const double* x, const double* mask, const double* ls, const double* amp,
+    const double* g, double* part, double* grad_ls, double* grad_amp, int cap,
+    int d, int lanes, int x_per_lane, int kind, void* stream) {
+  return launch_backward<false>(x, mask, ls, amp, g, part, nullptr, grad_ls,
+                                grad_amp, nullptr, cap, d, lanes, x_per_lane,
+                                kind, stream);
+}
+
+// The same, and dL/dx into grad_x (lanes, cap, d); dxpart is scratch of
+// lanes * bobe_gram_tile_pairs(cap) * 2 * 64 * d doubles.
+extern "C" int bobe_gram_masked_backward_x_f64(
+    const double* x, const double* mask, const double* ls, const double* amp,
+    const double* g, double* part, double* dxpart, double* grad_ls,
+    double* grad_amp, double* grad_x, int cap, int d, int lanes,
+    int x_per_lane, int kind, void* stream) {
+  return launch_backward<true>(x, mask, ls, amp, g, part, dxpart, grad_ls,
+                               grad_amp, grad_x, cap, d, lanes, x_per_lane,
+                               kind, stream);
 }

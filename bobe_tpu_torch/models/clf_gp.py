@@ -28,7 +28,7 @@ from ..utils.seed import get_numpy_rng
 from .classifiers import (CLASSIFIER_REGISTRY, params_to_device,
                           params_to_numpy, predict_proba_apply)
 from .gp import (DEDUP_ATOL, DEDUP_RTOL, GP, SAFE_NOISE_FLOOR,
-                 _restore_fit_basins)
+                 _restore_fit_basins, _restore_warp, refresh)
 
 log = get_logger("clf_gp")
 
@@ -239,6 +239,12 @@ class GPwithClassifier(GP):
                    param_names=self.param_names,
                    input_warp=self.cfg.input_warp,
                    warp_bounds=self.cfg.warp_bounds, device=self.device)
+        if self.cfg.input_warp:
+            # carry the learned warp across the rebuild (a fresh GP starts
+            # at the identity) and refactorize in warp space
+            fresh.state = refresh(fresh.state._replace(
+                log_wa=self.state.log_wa, log_wb=self.state.log_wb),
+                fresh.cfg)
         self.state = fresh.state
 
     # -------------------------------------------------------- random points
@@ -316,6 +322,7 @@ class GPwithClassifier(GP):
                 state.get("warp_bounds", (0.25, 4.0))).tolist()),
             device=device,
         )
+        _restore_warp(gp, state)
         gp.use_clf = bool(_item(state.get("use_clf", False)))
         clf_params = _item(state.get("clf_params"))
         gp.clf_metrics = _item(state.get("clf_metrics")) or {}

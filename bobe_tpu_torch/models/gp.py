@@ -9,7 +9,14 @@ tensors plus plain functions:
 * Adding points uses the O(cap^2 b) block Cholesky extension; re-standardizing
   the targets after an update only changes ``alpha``.
 * Hyperparameter fits run all restarts as lanes of one batched L-BFGS
-  (ops/optimize.py) in float64.
+  (ops/optimize.py) in float64, or as lockstep adam lanes, or as host scipy
+  L-BFGS-B restarts (``optimizer``).
+* Options: the SAAS lengthscale prior (its global shrinkage ``tausq`` is a
+  fitted hyperparameter) and the Kumaraswamy input warp, whose parameters
+  are fitted jointly with the kernel's: every kernel evaluation then runs in
+  warp space (:func:`train_coords`, :func:`query_coords`), and each restart
+  lane of a fit warps the training points with its own parameters (one
+  per-lane Gram build, differentiated through the coordinates).
 
 ``n`` is a host integer: every slice of the buffers uses it, and keeping it
 on the host saves a device read per slice. State tensors are never written in
@@ -67,11 +74,13 @@ class GPState(NamedTuple):
     alpha: torch.Tensor      # (cap,) K^-1 y_standardized
     log_ls: torch.Tensor     # (d,) log ARD lengthscales
     log_amp: torch.Tensor    # () log kernel variance
-    log_tausq: torch.Tensor  # () log SAAS tausq (unused: SAAS not ported)
+    log_tausq: torch.Tensor  # () log SAAS tausq (unused unless SAAS prior)
     y_mean: torch.Tensor     # () standardization mean
     y_std: torch.Tensor      # () standardization std
-    log_wa: Optional[torch.Tensor] = None  # (d,) input-warp params (kept
-    log_wb: Optional[torch.Tensor] = None  # for the npz layout; not used)
+    # (d,) log Kumaraswamy input-warp parameters, identity at 0; read only
+    # when GPTrainConfig.input_warp is on
+    log_wa: Optional[torch.Tensor] = None
+    log_wb: Optional[torch.Tensor] = None
 
     @property
     def cap(self) -> int:
@@ -106,20 +115,15 @@ class GPTrainConfig:
     kernel: str = "rbf"
     noise: float = 1e-8
     fixed_kernel_variance: bool = False
-    lengthscale_prior: Any = None      # None | 'DSLP' | frozen spec
+    lengthscale_prior: Any = None      # None | 'DSLP' | 'SAAS' | frozen spec
     kernel_variance_prior: Any = None  # None | 'fixed' | frozen spec
     lengthscale_bounds: tuple = (0.01, 5.0)
     kernel_variance_bounds: tuple = (1e-4, 1e8)
     tausq_bounds: tuple = (1e-4, 1e4)
+    # Kumaraswamy input warp u = 1 - (1 - x^a)^b per dimension, fitted with
+    # the kernel hyperparameters; warp_bounds bound a and b (identity 1)
     input_warp: bool = False
     warp_bounds: tuple = (0.25, 4.0)
-
-    def __post_init__(self):
-        if self.input_warp:
-            raise config.not_ported("The input warp", "gp_options")
-        if self.lengthscale_prior == "SAAS":
-            raise config.not_ported("The SAAS lengthscale prior",
-                                    "gp_options")
 
 
 # =====================================================================
@@ -139,8 +143,52 @@ def _y_standardized(state: GPState):
     return (state.y_raw - state.y_mean) / state.y_std * state.mask()
 
 
+# the warp's clip keeps x^a and (1 - x^a)^b off the cube's faces, where
+# their slopes are infinite for a, b < 1
+WARP_CLIP = 1e-10
+
+
+def kumaraswamy_warp(x, log_wa, log_wb):
+    """Per-dimension Kumaraswamy CDF warp u = 1 - (1 - x^a)^b on [0, 1],
+    (a, b) = exp(log_wa, log_wb); identity at a = b = 1. x (..., m, d);
+    log_wa, log_wb (d,) or (R, d), one warp per lane (then the result is
+    (R, m, d)). x is clipped to [WARP_CLIP, 1 - WARP_CLIP]."""
+    a = torch.exp(log_wa).unsqueeze(-2)
+    b = torch.exp(log_wb).unsqueeze(-2)
+    xc = torch.clamp(x, WARP_CLIP, 1.0 - WARP_CLIP)
+    return 1.0 - (1.0 - xc ** a) ** b
+
+
+def warp_jacobian(x, log_wa, log_wb):
+    """du/dx of :func:`kumaraswamy_warp` elementwise:
+    a b x^(a-1) (1 - x^a)^(b-1), 0 where the clip holds."""
+    a = torch.exp(log_wa)
+    b = torch.exp(log_wb)
+    inside = (x >= WARP_CLIP) & (x <= 1.0 - WARP_CLIP)
+    xc = torch.clamp(x, WARP_CLIP, 1.0 - WARP_CLIP)
+    xa = xc ** a
+    jac = a * b * xa / xc * (1.0 - xa) ** (b - 1.0)
+    return torch.where(inside, jac, torch.zeros_like(jac))
+
+
+def train_coords(state: GPState, cfg: GPTrainConfig):
+    """Kernel-space coordinates of the training buffer (warped iff the
+    warp is on)."""
+    if cfg.input_warp:
+        return kumaraswamy_warp(state.x, state.log_wa, state.log_wb)
+    return state.x
+
+
+def query_coords(state: GPState, cfg: GPTrainConfig, xq):
+    """Kernel-space coordinates of query points (warped iff the warp is
+    on)."""
+    if cfg.input_warp:
+        return kumaraswamy_warp(xq, state.log_wa, state.log_wb)
+    return xq
+
+
 def gram(state: GPState, cfg: GPTrainConfig):
-    return kr.gram_masked(cfg.kernel, state.x, state.mask(),
+    return kr.gram_masked(cfg.kernel, train_coords(state, cfg), state.mask(),
                           torch.exp(state.log_ls), torch.exp(state.log_amp),
                           cfg.noise)
 
@@ -187,9 +235,11 @@ def extend(state: GPState, cfg: GPTrainConfig, new_x, new_y) -> GPState:
     xs = xs * acc[:, None] + 0.5 * (1.0 - acc[:, None])
     ys = ys * acc
 
-    K21 = kr.cross_kernel(cfg.kernel, xs, state.x, ls, amp)
+    # kernel matrices in warp space (the dedupe above stays in raw space)
+    xs_k = query_coords(state, cfg, xs)
+    K21 = kr.cross_kernel(cfg.kernel, xs_k, train_coords(state, cfg), ls, amp)
     K21 = K21 * (acc[:, None] * mask[None, :])
-    K22 = kr.cross_kernel(cfg.kernel, xs, xs, ls, amp)
+    K22 = kr.cross_kernel(cfg.kernel, xs_k, xs_k, ls, amp)
     K22 = K22 * (acc[:, None] * acc[None, :])
     K22 = K22 + torch.diag(cfg.noise * acc + (1.0 - acc))
     L21, L22 = chol_ops.extend_cholesky_block(state.chol, K21, K22)
@@ -219,7 +269,9 @@ def predict_raw(state: GPState, cfg: GPTrainConfig, xq):
     """Standardized-scale posterior (mean, var) at xq (m, d): noisy variance
     diagonal, NaN-guarded and floor-clipped."""
     ls, amp = torch.exp(state.log_ls), torch.exp(state.log_amp)
-    K12 = kr.cross_kernel_masked(cfg.kernel, state.x, state.mask(), xq, ls, amp)
+    K12 = kr.cross_kernel_masked(cfg.kernel, train_coords(state, cfg),
+                                 state.mask(), query_coords(state, cfg, xq),
+                                 ls, amp)
     mean = K12.T @ state.alpha
     V = chol_ops.tri_solve(state.chol, K12)
     var = (amp + cfg.noise) - torch.sum(V * V, dim=0)
@@ -231,7 +283,9 @@ def predict_raw(state: GPState, cfg: GPTrainConfig, xq):
 def predict_mean(state: GPState, cfg: GPTrainConfig, xq):
     """Physical-scale posterior mean at xq (m, d)."""
     ls, amp = torch.exp(state.log_ls), torch.exp(state.log_amp)
-    K12 = kr.cross_kernel_masked(cfg.kernel, state.x, state.mask(), xq, ls, amp)
+    K12 = kr.cross_kernel_masked(cfg.kernel, train_coords(state, cfg),
+                                 state.mask(), query_coords(state, cfg, xq),
+                                 ls, amp)
     return (K12.T @ state.alpha) * state.y_std + state.y_mean
 
 
@@ -245,11 +299,16 @@ def mean_value_and_grad_fn(state: GPState, cfg: GPTrainConfig):
     With c_i = alpha_i amp m_i (m_i the pad mask) the mean is
     sum_i c_i corr(r_i) and its gradient sum_i w_i (x_i - x) / l^2, both
     times y_std: RBF w_i = c_i exp(-r_i^2/2), Matern-5/2
-    w_i = c_i (5/3)(1 + sqrt5 r_i) exp(-sqrt5 r_i)."""
+    w_i = c_i (5/3)(1 + sqrt5 r_i) exp(-sqrt5 r_i).
+
+    Under the input warp the closed form runs in warp space (the training
+    coordinates warped once, here; the query u = warp(xq)) and its gradient
+    is chained by the warp's Jacobian (:func:`warp_jacobian`, 0 where the
+    clip holds)."""
     if cfg.kernel not in ("rbf", "matern"):
         raise ValueError(f"Unknown kernel '{cfg.kernel}'")
     ls, amp = torch.exp(state.log_ls), torch.exp(state.log_amp)
-    x_tr = state.x
+    x_tr = train_coords(state, cfg)
     xs_tr = x_tr / ls
     a2 = torch.sum(xs_tr * xs_tr, dim=-1)[:, None]
     coef = (state.alpha * amp * state.mask())[:, None]
@@ -260,6 +319,10 @@ def mean_value_and_grad_fn(state: GPState, cfg: GPTrainConfig):
     rbf = cfg.kernel == "rbf"
     if rbf:
         a2 = -0.5 * a2
+
+    def f_warped(xq):
+        mean, grad = f(query_coords(state, cfg, xq))
+        return mean, grad * warp_jacobian(xq, state.log_wa, state.log_wb)
 
     def f(xq):
         xq_s = xq / ls
@@ -280,7 +343,7 @@ def mean_value_and_grad_fn(state: GPState, cfg: GPTrainConfig):
         grad = torch.addcmul(w.T @ x_tr, sw[:, None], xq, value=-1.0) * gfac
         return torch.add(y_mean, s, alpha=y_std), grad
 
-    return f
+    return f_warped if cfg.input_warp else f
 
 
 def predict_mean_value_and_grad(state: GPState, cfg: GPTrainConfig, xq):
@@ -297,19 +360,45 @@ def predict(state: GPState, cfg: GPTrainConfig, xq):
 
 def _parse_log_params(cfg: GPTrainConfig, state: GPState, log_params):
     """Split the packed log-hyperparameter vector(s) (..., n_hp):
-    [log_ls (d)] [log_amp?]. Returns (ls, amp, tausq)."""
+    [log_ls (d)] [log_amp?] [log_tausq?] [log_wa (d), log_wb (d)?], the warp
+    at the end. Returns (ls, amp, tausq, log_wa, log_wb); what the vector
+    does not hold comes from the state."""
     d = state.ndim
+    batch = log_params.shape[:-1]
     ls = torch.exp(log_params[..., :d])
+    i = d
     if cfg.fixed_kernel_variance:
-        amp = torch.exp(state.log_amp).expand(log_params.shape[:-1])
+        amp = torch.exp(state.log_amp).expand(batch)
     else:
-        amp = torch.exp(log_params[..., d])
-    return ls, amp, torch.exp(state.log_tausq)
+        amp = torch.exp(log_params[..., i])
+        i += 1
+    if cfg.lengthscale_prior == "SAAS":
+        tausq = torch.exp(log_params[..., i])
+        i += 1
+    else:
+        tausq = torch.exp(state.log_tausq).expand(batch)
+    if cfg.input_warp:
+        log_wa = log_params[..., i:i + d]
+        log_wb = log_params[..., i + d:i + 2 * d]
+    else:
+        log_wa, log_wb = state.log_wa, state.log_wb
+    return ls, amp, tausq, log_wa, log_wb
+
+
+def _warp_prior_logprob(cfg: GPTrainConfig, log_wa, log_wb):
+    """Log-normal prior on the warp parameters: N(0, 0.5^2) on log a and
+    log b, toward the identity warp; summed over the last axis."""
+    sig2 = 0.25
+    return -0.5 * (torch.sum(log_wa ** 2, dim=-1)
+                   + torch.sum(log_wb ** 2, dim=-1)) / sig2
 
 
 def _prior_logprob(cfg: GPTrainConfig, d: int, ls, amp, tausq):
-    """Hyperprior: uniform (or a user spec) on the amplitude unless fixed;
-    on every lengthscale uniform, the DSLP prior, or a user spec."""
+    """Hyperprior: the SAAS prior; else uniform (or a user spec) on the
+    amplitude unless fixed, and on every lengthscale uniform, the DSLP
+    prior, or a user spec."""
+    if cfg.lengthscale_prior == "SAAS":
+        return mll_ops.saas_logprob(ls, amp, tausq)
     lp = torch.zeros_like(amp)
     kv_spec = _thaw_spec(cfg.kernel_variance_prior)
     if not cfg.fixed_kernel_variance:
@@ -335,10 +424,16 @@ def neg_mll(state: GPState, cfg: GPTrainConfig, log_params, dsq_perdim=None):
     (ops/kernels.sq_dist_perdim); each Gram build is then a weighted slab
     sum. Without it every lane's Gram matrix comes from one ``gram_masked``
     call (on the card: one forward launch, and one backward launch under
-    autograd). Differentiable either way."""
-    ls, amp, tausq = _parse_log_params(cfg, state, log_params)
+    autograd). Under the input warp every lane warps the training points
+    with its own parameters, so the Gram build takes per-lane coordinates
+    and is differentiated through them (``dsq_perdim`` is ignored).
+    Differentiable either way."""
+    ls, amp, tausq, log_wa, log_wb = _parse_log_params(cfg, state, log_params)
     mask = state.mask()
-    if dsq_perdim is not None:
+    if cfg.input_warp:
+        xw = kumaraswamy_warp(state.x, log_wa, log_wb)
+        K = kr.gram_masked(cfg.kernel, xw, mask, ls, amp, cfg.noise)
+    elif dsq_perdim is not None:
         K = kr.gram_masked_perdim(cfg.kernel, dsq_perdim, mask, ls, amp,
                                   cfg.noise)
     else:
@@ -346,6 +441,8 @@ def neg_mll(state: GPState, cfg: GPTrainConfig, log_params, dsq_perdim=None):
     y = _y_standardized(state)
     mll = mll_ops.gp_mll(K, y, state.n)
     mll = mll + _prior_logprob(cfg, state.ndim, ls, amp, tausq)
+    if cfg.input_warp:
+        mll = mll + _warp_prior_logprob(cfg, log_wa, log_wb)
     return -mll
 
 
@@ -354,18 +451,24 @@ def hyperparam_bounds_log(cfg: GPTrainConfig, d: int) -> torch.Tensor:
     bounds: List = [list(cfg.lengthscale_bounds)] * d
     if not cfg.fixed_kernel_variance:
         bounds.append(list(cfg.kernel_variance_bounds))
+    if cfg.lengthscale_prior == "SAAS":
+        bounds.append(list(cfg.tausq_bounds))
+    if cfg.input_warp:
+        bounds.extend([list(cfg.warp_bounds)] * (2 * d))
     return torch.log(torch.as_tensor(bounds, dtype=torch.float64).T)
 
 
 def set_hyperparams(state: GPState, cfg: GPTrainConfig, log_params) -> GPState:
     log_params = torch.as_tensor(log_params, dtype=state.x.dtype,
                                  device=state.x.device)
-    ls, amp, tausq = _parse_log_params(cfg, state, log_params)
+    ls, amp, tausq, log_wa, log_wb = _parse_log_params(cfg, state, log_params)
     state = state._replace(
         log_ls=torch.log(ls),
         log_amp=state.log_amp if cfg.fixed_kernel_variance else torch.log(amp),
         log_tausq=torch.log(tausq),
     )
+    if cfg.input_warp:
+        state = state._replace(log_wa=log_wa, log_wb=log_wb)
     return refresh(state, cfg)
 
 
@@ -411,6 +514,18 @@ def _restore_fit_basins(gp, state: Dict[str, Any]) -> None:
         gp._fit_basins = [(bp[i], float(bf[i])) for i in range(len(bf))]
 
 
+def _restore_warp(gp, state: Dict[str, Any]) -> None:
+    """Install a state dict's warp parameters (absent-tolerant) and, when
+    the GP warps its inputs, refactorize in warp space."""
+    log_wa, log_wb = state.get("log_wa"), state.get("log_wb")
+    if log_wa is not None and log_wb is not None and np.size(log_wa):
+        t = lambda a: torch.as_tensor(np.array(a, dtype=np.float64),
+                                      dtype=config.DTYPE, device=gp.device)
+        gp.state = gp.state._replace(log_wa=t(log_wa), log_wb=t(log_wb))
+        if gp.cfg.input_warp:
+            gp.state = refresh(gp.state, gp.cfg)
+
+
 def _endpoint_basins(all_x, all_f) -> list:
     """``[(log_params, neg_mll)]`` per distinct basin, best-first, from the
     restart endpoints of one fit. All scores are exact float64, so this is
@@ -431,11 +546,15 @@ def fit(state: GPState, cfg: GPTrainConfig, x0=None, maxiter: int = 500,
     """Optimize hyperparameters from multi-restart x0 (log space).
 
     Restarts: the current hyperparameters plus uniform draws inside the log
-    bounds from ``rng``, all run as lanes of one batched L-BFGS in float64.
-    Returns (new_state, info dict with 'mll', 'params' and 'basins')."""
-    if optimizer != "lbfgs":
-        raise ValueError(f"optimizer '{optimizer}' is not available in the "
-                         "port (it implements 'lbfgs')")
+    bounds from ``rng`` (the warp parameters of the random restarts drawn
+    near the identity instead). ``optimizer``: 'lbfgs' (lockstep L-BFGS
+    lanes) or 'adam' (lockstep adam lanes), both in float64 on the state's
+    device, or 'scipy' (scipy L-BFGS-B per restart on the host, the value
+    and gradient on the device). Returns (new_state, info dict with 'mll',
+    'params' and 'basins')."""
+    if optimizer not in ("lbfgs", "adam", "scipy"):
+        raise ValueError(f"Unknown optimizer '{optimizer}' (expected "
+                         "'lbfgs', 'adam' or 'scipy')")
     d = state.ndim
     dev, dt = state.x.device, state.x.dtype
     bounds = hyperparam_bounds_log(cfg, d)
@@ -444,11 +563,23 @@ def fit(state: GPState, cfg: GPTrainConfig, x0=None, maxiter: int = 500,
         cur = [state.log_ls]
         if not cfg.fixed_kernel_variance:
             cur.append(state.log_amp[None])
+        if cfg.lengthscale_prior == "SAAS":
+            cur.append(state.log_tausq[None])
+        if cfg.input_warp:
+            zeros = torch.zeros(d, dtype=dt, device=dev)
+            cur.append(state.log_wa if state.log_wa is not None else zeros)
+            cur.append(state.log_wb if state.log_wb is not None else zeros)
         cur = torch.cat(cur)
         n_hp = bounds.shape[1]
         if n_restarts > 1:
             rand = rng.uniform(bounds[0].numpy(), bounds[1].numpy(),
                                size=(n_restarts - 1, n_hp))
+            if cfg.input_warp:
+                # random restarts keep the warp near the identity: wild
+                # warps with random lengthscales make spuriously deep local
+                # optima; the warp's curvature comes from the data
+                rand[:, n_hp - 2 * d:] = rng.normal(
+                    0.0, 0.1, size=(n_restarts - 1, 2 * d))
             x0 = torch.cat([cur[None, :],
                             torch.as_tensor(rand, dtype=dt, device=dev)])
         else:
@@ -457,9 +588,17 @@ def fit(state: GPState, cfg: GPTrainConfig, x0=None, maxiter: int = 500,
 
     cap = state.cap
     dsq = None
-    if d * cap * cap * state.x.element_size() <= PERDIM_MAX_BYTES:
+    if (d * cap * cap * state.x.element_size() <= PERDIM_MAX_BYTES
+            and not cfg.input_warp):
         dsq = kr.sq_dist_perdim(state.x)
     obj = lambda lp: neg_mll(state, cfg, lp, dsq_perdim=dsq)
+    if optimizer == "scipy":
+        best, best_f, all_np, f_np = opt_ops.minimize_scipy_restarts(
+            obj, x0, bounds=bounds, maxiter=maxiter, return_all=True)
+        new_state = set_hyperparams(state, cfg, best)
+        return new_state, {"mll": float(-best_f),
+                           "params": best.cpu().numpy(),
+                           "basins": _endpoint_basins(all_np, f_np)}
     all_x, all_f = opt_ops.minimize_restarts(
         obj, x0, bounds=bounds.to(dev), method=optimizer, maxiter=maxiter,
         return_all=True)
@@ -670,11 +809,12 @@ class GP:
         accepted for API parity and not used."""
         st, cfg = self.state, self.cfg
         ls, amp = torch.exp(st.log_ls), torch.exp(st.log_amp)
-        mc = self._as_points(mc_points)
-        new = self._as_points(new_x).reshape(-1)
-        V, var_mc = posterior_batch(cfg.kernel, st.x, st.mask(), st.chol,
+        xt = train_coords(st, cfg)
+        mc = query_coords(st, cfg, self._as_points(mc_points))
+        new = query_coords(st, cfg, self._as_points(new_x).reshape(1, -1))[0]
+        V, var_mc = posterior_batch(cfg.kernel, xt, st.mask(), st.chol,
                                     mc, ls, amp, cfg.noise)
-        fv = fantasy_var_single(cfg.kernel, st.x, st.mask(), st.chol,
+        fv = fantasy_var_single(cfg.kernel, xt, st.mask(), st.chol,
                                 new, mc, V, var_mc, ls, amp, cfg.noise)
         return fv * st.y_std**2
 
@@ -768,19 +908,33 @@ class GP:
         names = ["lengthscales"]
         if not self.cfg.fixed_kernel_variance:
             names.append("kernel_variance")
+        if self.cfg.lengthscale_prior == "SAAS":
+            names.append("tausq")
+        if self.cfg.input_warp:
+            # the name groups follow the packed vector of
+            # hyperparam_bounds / get_hyperparams
+            names.extend(["warp_a", "warp_b"])
         return names
 
     def get_hyperparams(self):
         hp = [torch.exp(self.state.log_ls)]
         if not self.cfg.fixed_kernel_variance:
             hp.append(torch.exp(self.state.log_amp)[None])
+        if self.cfg.lengthscale_prior == "SAAS":
+            hp.append(torch.exp(self.state.log_tausq)[None])
+        if self.cfg.input_warp:
+            hp.append(torch.exp(self.state.log_wa))
+            hp.append(torch.exp(self.state.log_wb))
         return torch.cat(hp)
 
     def hyperparams_dict(self):
         ls = {n: f"{float(v):.4f}" for n, v in
               zip(self.param_names, self.lengthscales.tolist())}
-        return {"lengthscales": ls,
-                "kernel_variance": f"{self.kernel_variance:.4f}"}
+        out = {"lengthscales": ls,
+               "kernel_variance": f"{self.kernel_variance:.4f}"}
+        if self.cfg.lengthscale_prior == "SAAS":
+            out["tausq"] = f"{self.tausq:.4f}"
+        return out
 
     def get_random_point(self, rng=None, nstd=None):
         rng = rng if rng is not None else get_numpy_rng()
@@ -859,11 +1013,7 @@ class GP:
                          if state.get("param_names") is not None else None),
             device=device,
         )
-        log_wa, log_wb = state.get("log_wa"), state.get("log_wb")
-        if log_wa is not None and log_wb is not None and np.size(log_wa):
-            t = lambda a: torch.as_tensor(np.array(a, dtype=np.float64),
-                                          dtype=config.DTYPE, device=gp.device)
-            gp.state = gp.state._replace(log_wa=t(log_wa), log_wb=t(log_wb))
+        _restore_warp(gp, state)
         _restore_fit_basins(gp, state)
         return gp
 
@@ -909,7 +1059,11 @@ class GP:
         gp.param_names = list(other.param_names)
         gp.optimizer_method = other.optimizer_method
         gp.optimizer_options = dict(other.optimizer_options)
-        gp.cfg = GPTrainConfig(kernel=other.cfg.kernel, noise=other.cfg.noise)
+        # priors and bounds do not shape K, the warp does: the shared
+        # Cholesky factor lives in warp space
+        gp.cfg = GPTrainConfig(kernel=other.cfg.kernel, noise=other.cfg.noise,
+                               input_warp=other.cfg.input_warp,
+                               warp_bounds=other.cfg.warp_bounds)
         gp.state = other.state
         gp._fit_basins = []
         return gp

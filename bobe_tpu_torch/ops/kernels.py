@@ -7,8 +7,10 @@ are the identity (``K[i,i]=1, K[i,j]=0``), so the padded Cholesky factor is
 ``[[L, 0], [0, I]]`` and downstream solves need no masking (ops/chol.py).
 
 :func:`gram_masked` is the masked Gram build of every GP refresh and, above
-the per-dimension memory budget of the fit, of every MLL objective over the
-restart lanes. It is differentiable in the hyperparameters
+the per-dimension memory budget of the fit (and in every fit of an input-
+warped GP), of every MLL objective over the restart lanes. Its coordinates
+are shared by the lanes, (cap, d), or one set per lane, (R, cap, d) (the
+warp). It is differentiable in the hyperparameters and in the coordinates
 (:class:`GramMasked`). On a CUDA tensor its forward and backward launch the
 hand-written kernels of ``csrc/gram_masked.cu`` (built with ``nvcc`` at first
 use, bound with ``ctypes``) or raise; on a CPU tensor they compute the plain
@@ -101,35 +103,41 @@ def gram_masked_plain(name, x, mask, lengthscales, kernel_variance, noise):
     """Plain PyTorch padded Gram matrix with identity pad block (the
     reference the CUDA kernel is held to; mirrors bobe_tpu's XLA build).
 
-    x: (cap, d) padded inputs; mask: (cap,) 1.0 for active rows. Batched
-    over leading dimensions of ``lengthscales`` (..., d) and
-    ``kernel_variance`` (...): returns (..., cap, cap), every lane with
-    K[active,active] = k(x,x) + noise*I, K[pad,pad] = I and zero cross
-    blocks."""
+    x: (cap, d) padded inputs, or (R, cap, d) one set per lane; mask: (cap,)
+    1.0 for active rows. Batched over leading dimensions of
+    ``lengthscales`` (..., d) and ``kernel_variance`` (...): returns
+    (..., cap, cap), every lane with K[active,active] = k(x,x) + noise*I,
+    K[pad,pad] = I and zero cross blocks."""
     amp = torch.as_tensor(kernel_variance, dtype=x.dtype, device=x.device)
     xs = x / lengthscales[..., None, :]
     k = amp[..., None, None] * _corr(name, sq_dist(xs, xs))
     mm = mask[:, None] * mask[None, :]
-    eye = torch.eye(x.shape[0], dtype=k.dtype, device=k.device)
+    eye = torch.eye(x.shape[-2], dtype=k.dtype, device=k.device)
     return k * mm + (noise * mask + (1.0 - mask)) * eye
 
 
 def gram_masked_backward_plain(name, x, mask, lengthscales, kernel_variance,
-                               grad):
+                               grad, need_x=False):
     """Plain PyTorch gradient of sum(grad * gram_masked) in the lengthscales
-    (R, d) and amplitudes (R,), by the explicit formulas (not autograd): with
-    D_ijk = x_ik - x_jk exact per-dimension differences,
+    (R, d) and amplitudes (R,) and, with ``need_x``, in the coordinates, by
+    the explicit formulas (not autograd): with D_ijk = x_ik - x_jk exact
+    per-dimension differences, c' = corr (RBF) or
+    (5/3)(1 + sqrt5 r) e^{-sqrt5 r} (Matern-5/2) and
+    W_ij = (G_ij + G_ji) amp_r m_i m_j c'_ij,
 
         d/damp_r = sum_ij G_ij m_i m_j corr_ij
         d/dl_rk  = l_rk^-3 sum_ij G_ij amp_r m_i m_j c'_ij D_ijk^2
+        d/dx_rik = -l_rk^-2 (x_ik sum_j W_ij - sum_j W_ij x_jk)
 
-    where c' = corr (RBF) or (5/3)(1 + sqrt5 r) e^{-sqrt5 r} (Matern-5/2).
-    ``grad`` is (R, cap, cap) and need not be symmetric; mask and noise are
-    not differentiated. Returns (grad_ls (R, d), grad_amp (R,))."""
+    x is (cap, d) or (R, cap, d); ``grad`` is (R, cap, cap) and need not be
+    symmetric; mask and noise are not differentiated. Returns (grad_ls
+    (R, d), grad_amp (R,)), and grad_x (R, cap, d) per lane with
+    ``need_x``."""
     ls, amp = lengthscales, kernel_variance
-    d = x.shape[1]
-    diffsq = [(x[:, k, None] - x[None, :, k]) ** 2 for k in range(d)]
-    dsq = sum(diffsq[k] / (ls[:, k, None, None] ** 2) for k in range(d))
+    d = x.shape[-1]
+    xk = [x[..., k] for k in range(d)]
+    diffsq = lambda k: (xk[k][..., :, None] - xk[k][..., None, :]) ** 2
+    dsq = sum(diffsq(k) / (ls[:, k, None, None] ** 2) for k in range(d))
     if name == "rbf":
         corr = torch.exp(-0.5 * dsq)
         dcorr = corr
@@ -144,15 +152,23 @@ def gram_masked_backward_plain(name, x, mask, lengthscales, kernel_variance,
     gm = grad * (mask[:, None] * mask[None, :])
     grad_amp = torch.sum(gm * corr, dim=(-2, -1))
     w = gm * amp[:, None, None] * dcorr
-    grad_ls = torch.stack([torch.sum(w * diffsq[k], dim=(-2, -1))
+    grad_ls = torch.stack([torch.sum(w * diffsq(k), dim=(-2, -1))
                            for k in range(d)], dim=-1) / ls ** 3
-    return grad_ls, grad_amp
+    if not need_x:
+        return grad_ls, grad_amp
+    W = w + w.transpose(-1, -2)
+    xb = x.expand(W.shape[0], *x.shape[-2:])
+    grad_x = -(xb * torch.sum(W, dim=-1)[..., None] - W @ xb) \
+        / (ls * ls)[:, None, :]
+    return grad_ls, grad_amp, grad_x
 
 
 class GramMasked(torch.autograd.Function):
-    """gram_masked over restart lanes, differentiable in the lengthscales
-    (R, d) and amplitudes (R,). On a CUDA tensor both directions are the
-    hand-written kernels; on a CPU tensor their plain versions."""
+    """gram_masked over restart lanes, differentiable in the coordinates
+    (cap, d) or (R, cap, d), the lengthscales (R, d) and the amplitudes
+    (R,). On a CUDA tensor both directions are the hand-written kernels (the
+    coordinate gradient only when autograd asks for it); on a CPU tensor
+    their plain versions."""
 
     @staticmethod
     def forward(ctx, name, x, mask, lengthscales, kernel_variance, noise):
@@ -168,9 +184,16 @@ class GramMasked(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         x, mask, ls, amp = ctx.saved_tensors
-        grad_ls, grad_amp = gram_masked_backward(ctx.name, x, mask, ls, amp,
-                                                 grad.contiguous())
-        return None, None, None, grad_ls, grad_amp, None
+        grad = grad.contiguous()
+        if not ctx.needs_input_grad[1]:
+            grad_ls, grad_amp = gram_masked_backward(ctx.name, x, mask, ls,
+                                                     amp, grad)
+            return None, None, None, grad_ls, grad_amp, None
+        grad_ls, grad_amp, grad_x = gram_masked_backward_x(
+            ctx.name, x, mask, ls, amp, grad)
+        if x.dim() == 2:  # shared by the lanes
+            grad_x = torch.sum(grad_x, dim=0)
+        return None, grad_x, None, grad_ls, grad_amp, None
 
 
 def gram_masked(name, x, mask, lengthscales, kernel_variance, noise):
@@ -178,14 +201,17 @@ def gram_masked(name, x, mask, lengthscales, kernel_variance, noise):
 
     One set of hyperparameters (lengthscales (d,), scalar kernel_variance)
     gives (cap, cap); restart lanes (lengthscales (R, d), kernel_variance
-    (R,) or scalar) give (R, cap, cap) from one launch. Differentiable in
-    lengthscales and kernel_variance (:class:`GramMasked`); a gradient with
-    respect to x or mask raises. ``noise`` is a host float.
+    (R,) or scalar) give (R, cap, cap) from one launch. x is (cap, d),
+    shared by the lanes, or (R, cap, d), one set of coordinates per lane.
+    Differentiable in x, lengthscales and kernel_variance
+    (:class:`GramMasked`); a gradient with respect to mask raises.
+    ``noise`` is a host float.
 
     On a CPU tensor: the plain PyTorch versions. On a CUDA tensor: the
     hand-written kernels (csrc/gram_masked.cu), forward in float32 or
     float64, backward in float64, or an exception — never a silent
-    fallback. ``gram_masked.launches`` counts forward launches.
+    fallback. ``gram_masked.launches`` counts forward launches,
+    ``gram_masked.launches_lane_x`` those among them with per-lane x.
     """
     if name not in _KINDS:
         raise ValueError(f"Unknown kernel '{name}' (expected 'rbf' or "
@@ -194,10 +220,12 @@ def gram_masked(name, x, mask, lengthscales, kernel_variance, noise):
         raise TypeError("gram_masked: noise must be a host float")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gram_masked: unsupported device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or mask.requires_grad):
-        raise config.not_ported(
-            "The Gram kernel's gradient with respect to x", "gp_options")
+    if torch.is_grad_enabled() and mask.requires_grad:
+        raise ValueError("gram_masked: the mask is not differentiable")
     single = lengthscales.dim() == 1
+    if single and x.dim() != 2:
+        raise ValueError("gram_masked: per-lane x needs lengthscales "
+                         "(lanes, d)")
     ls = lengthscales.reshape(1, -1) if single else lengthscales
     amp = torch.as_tensor(kernel_variance, dtype=x.dtype, device=x.device)
     amp = amp.reshape(-1).expand(ls.shape[0])
@@ -207,6 +235,7 @@ def gram_masked(name, x, mask, lengthscales, kernel_variance, noise):
 
 
 gram_masked.launches = 0
+gram_masked.launches_lane_x = 0
 
 
 def gram_masked_backward(name, x, mask, lengthscales, kernel_variance, grad):
@@ -222,10 +251,29 @@ def gram_masked_backward(name, x, mask, lengthscales, kernel_variance, grad):
         raise ValueError(f"gram_masked_backward: unsupported device "
                          f"{x.device}")
     return _gram_masked_backward_cuda(name, x, mask, lengthscales,
-                                      kernel_variance, grad)
+                                      kernel_variance, grad, need_x=False)
 
 
 gram_masked_backward.launches = 0
+
+
+def gram_masked_backward_x(name, x, mask, lengthscales, kernel_variance,
+                           grad):
+    """:func:`gram_masked_backward` and the gradient in the coordinates:
+    returns (grad_ls (R, d), grad_amp (R,), grad_x (R, cap, d) per lane).
+    On a CUDA tensor: the kernel's coordinate variant (float64 only), or an
+    exception. ``gram_masked_backward_x.launches`` counts its launches."""
+    if x.device.type == "cpu":
+        return gram_masked_backward_plain(name, x, mask, lengthscales,
+                                          kernel_variance, grad, need_x=True)
+    if x.device.type != "cuda":
+        raise ValueError(f"gram_masked_backward_x: unsupported device "
+                         f"{x.device}")
+    return _gram_masked_backward_cuda(name, x, mask, lengthscales,
+                                      kernel_variance, grad, need_x=True)
+
+
+gram_masked_backward_x.launches = 0
 
 
 def cross_kernel_masked(name, x_train, mask, xq, lengthscales, kernel_variance):
@@ -294,13 +342,20 @@ def build_library(tile: int = TILE) -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.bobe_gram_masked_f64, lib.bobe_gram_masked_f32):
             fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_double, ptr,
-                           i32, i32, i32, i32, ptr]
+                           i32, i32, i32, i32, i32, ptr]
             fn.restype = i32
         lib.bobe_gram_masked_backward_f64.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            ptr]
         lib.bobe_gram_masked_backward_f64.restype = i32
+        lib.bobe_gram_masked_backward_x_f64.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+            i32, i32, ptr]
+        lib.bobe_gram_masked_backward_x_f64.restype = i32
         lib.bobe_gram_tile_pairs.argtypes = [i32]
         lib.bobe_gram_tile_pairs.restype = i32
+        lib.bobe_gram_tile.argtypes = []
+        lib.bobe_gram_tile.restype = i32
         build_info.update(path=str(so), seconds=time.time() - t0,
                           log=log_text)
         _LIBS[tile] = lib
@@ -309,15 +364,17 @@ def build_library(tile: int = TILE) -> ctypes.CDLL:
 
 def _check_inputs(what, x, mask, ls, amp):
     """Shapes, dtype, device and contiguity of the kernels' inputs; returns
-    (cap, d, lanes)."""
-    if x.dim() != 2:
-        raise ValueError(f"{what}: x must be (cap, d), got {tuple(x.shape)}")
-    cap, d = x.shape
+    (cap, d, lanes, x_per_lane)."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{what}: x must be (cap, d) or (lanes, cap, d), "
+                         f"got {tuple(x.shape)}")
+    cap, d = x.shape[-2:]
     if ls.dim() != 2:
         raise ValueError(f"{what}: lengthscales must be (lanes, d)")
     lanes = ls.shape[0]
+    per_lane = x.dim() == 3
     if mask.shape != (cap,) or ls.shape != (lanes, d) or \
-            amp.shape != (lanes,):
+            amp.shape != (lanes,) or (per_lane and x.shape[0] != lanes):
         raise ValueError(
             f"{what}: shapes x {tuple(x.shape)}, mask {tuple(mask.shape)}, "
             f"lengthscales {tuple(ls.shape)}, amp {tuple(amp.shape)} do not "
@@ -327,7 +384,7 @@ def _check_inputs(what, x, mask, ls, amp):
             raise ValueError(f"{what}: inputs must share dtype and device")
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
-    return cap, d, lanes
+    return cap, d, lanes, int(per_lane)
 
 
 def _check_launch(what, err):
@@ -338,32 +395,44 @@ def _check_launch(what, err):
 def launch_forward(name, x, mask, ls, amp, noise, out, tile=TILE):
     """Launch the forward kernel into ``out`` (lanes, cap, cap) on the
     current stream: no checks, no count, no allocation (the wrapper's
-    body, and what a device-time measurement loops over)."""
+    body, and what a device-time measurement loops over). x is (cap, d)
+    or (lanes, cap, d)."""
     lib = build_library(tile)
     fn = lib.bobe_gram_masked_f64 if x.dtype == torch.float64 \
         else lib.bobe_gram_masked_f32
-    cap, d = x.shape
+    cap, d = x.shape[-2:]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
                  float(noise), out.data_ptr(), cap, d, ls.shape[0],
-                 _KINDS[name], stream)
+                 int(x.dim() == 3), _KINDS[name], stream)
     _check_launch("gram_masked", err)
 
 
 def launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls,
-                    grad_amp, tile=TILE):
+                    grad_amp, tile=TILE, dx_scratch=None, grad_x=None):
     """Launch the backward kernels (block partials into ``scratch``, then
     their fixed-order sum into ``grad_ls``, ``grad_amp``) on the current
-    stream: no checks, no count, no allocation."""
+    stream: no checks, no count, no allocation. With ``grad_x`` (lanes,
+    cap, d) and ``dx_scratch`` the coordinate variant, which also writes
+    dL/dx."""
     lib = build_library(tile)
-    cap, d = x.shape
+    cap, d = x.shape[-2:]
+    per_lane = int(x.dim() == 3)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bobe_gram_masked_backward_f64(
-            x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
-            grad.data_ptr(), scratch.data_ptr(), grad_ls.data_ptr(),
-            grad_amp.data_ptr(), cap, d, ls.shape[0], _KINDS[name], stream)
+        if grad_x is None:
+            err = lib.bobe_gram_masked_backward_f64(
+                x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
+                grad.data_ptr(), scratch.data_ptr(), grad_ls.data_ptr(),
+                grad_amp.data_ptr(), cap, d, ls.shape[0], per_lane,
+                _KINDS[name], stream)
+        else:
+            err = lib.bobe_gram_masked_backward_x_f64(
+                x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
+                grad.data_ptr(), scratch.data_ptr(), dx_scratch.data_ptr(),
+                grad_ls.data_ptr(), grad_amp.data_ptr(), grad_x.data_ptr(),
+                cap, d, ls.shape[0], per_lane, _KINDS[name], stream)
     _check_launch("gram_masked_backward", err)
 
 
@@ -372,34 +441,49 @@ def backward_scratch_size(cap, d, lanes, tile=TILE) -> int:
     return lanes * (d + 1) * build_library(tile).bobe_gram_tile_pairs(cap)
 
 
+def backward_dx_scratch_size(cap, d, lanes, tile=TILE) -> int:
+    """float64 entries of the coordinate variant's row/column partials."""
+    lib = build_library(tile)
+    return lanes * lib.bobe_gram_tile_pairs(cap) * 2 * lib.bobe_gram_tile() \
+        * d
+
+
 def _gram_masked_cuda(name, x, mask, ls, amp, noise):
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"gram_masked: dtype {x.dtype} not supported")
-    cap, _, lanes = _check_inputs("gram_masked", x, mask, ls, amp)
+    cap, _, lanes, per_lane = _check_inputs("gram_masked", x, mask, ls, amp)
     out = torch.empty((lanes, cap, cap), dtype=x.dtype, device=x.device)
     launch_forward(name, x, mask, ls, amp, noise, out)
     gram_masked.launches += 1
+    gram_masked.launches_lane_x += per_lane
     return out
 
 
-def _gram_masked_backward_cuda(name, x, mask, ls, amp, grad):
+def _gram_masked_backward_cuda(name, x, mask, ls, amp, grad, need_x):
+    what = "gram_masked_backward_x" if need_x else "gram_masked_backward"
     if name not in _KINDS:
         raise ValueError(f"Unknown kernel '{name}' (expected 'rbf' or "
                          "'matern')")
     if x.dtype != torch.float64:
-        raise TypeError("gram_masked_backward: the kernel takes float64 "
-                        f"only, got {x.dtype}")
-    cap, d, lanes = _check_inputs("gram_masked_backward", x, mask, ls, amp)
+        raise TypeError(f"{what}: the kernel takes float64 only, got "
+                        f"{x.dtype}")
+    cap, d, lanes, _ = _check_inputs(what, x, mask, ls, amp)
     if grad.shape != (lanes, cap, cap) or grad.dtype != x.dtype or \
             grad.device != x.device or not grad.is_contiguous():
         raise ValueError(
-            f"gram_masked_backward: grad must be a contiguous "
-            f"({lanes}, {cap}, {cap}) tensor like x, got "
-            f"{tuple(grad.shape)} {grad.dtype}")
-    scratch = torch.empty(backward_scratch_size(cap, d, lanes),
-                          dtype=x.dtype, device=x.device)
-    grad_ls = torch.empty((lanes, d), dtype=x.dtype, device=x.device)
-    grad_amp = torch.empty((lanes,), dtype=x.dtype, device=x.device)
-    launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls, grad_amp)
-    gram_masked_backward.launches += 1
-    return grad_ls, grad_amp
+            f"{what}: grad must be a contiguous ({lanes}, {cap}, {cap}) "
+            f"tensor like x, got {tuple(grad.shape)} {grad.dtype}")
+    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
+    scratch = new(backward_scratch_size(cap, d, lanes))
+    grad_ls, grad_amp = new(lanes, d), new(lanes)
+    if not need_x:
+        launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls,
+                        grad_amp)
+        gram_masked_backward.launches += 1
+        return grad_ls, grad_amp
+    dx_scratch = new(backward_dx_scratch_size(cap, d, lanes))
+    grad_x = new(lanes, cap, d)
+    launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls, grad_amp,
+                    dx_scratch=dx_scratch, grad_x=grad_x)
+    gram_masked_backward_x.launches += 1
+    return grad_ls, grad_amp, grad_x

@@ -11,7 +11,6 @@ import math
 
 import torch
 
-from .. import config
 from . import chol as chol_ops
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -75,7 +74,13 @@ def dslp_lengthscale_logprob(lengthscales, ndim):
 
 
 def saas_logprob(lengthscales, kernel_variance, tausq):
-    raise config.not_ported("The SAAS prior", "gp_options")
+    """SAAS sparsity prior: LogNormal(0, 1) amplitude, HalfCauchy(0.1)
+    global shrinkage tausq, HalfCauchy(1) on every 1 / (tausq ls^2); the
+    lengthscale terms summed over the last axis."""
+    lp = lognormal_logprob(kernel_variance, 0.0, 1.0)
+    lp = lp + halfcauchy_logprob(tausq, 0.1)
+    inv_ls_sq = 1.0 / (tausq[..., None] * lengthscales ** 2)
+    return lp + torch.sum(halfcauchy_logprob(inv_ls_sq, 1.0), dim=-1)
 
 
 # ------------------------------------------------------------------------- MLL

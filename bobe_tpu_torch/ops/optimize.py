@@ -1,4 +1,5 @@
-"""Bounded multi-restart minimization as batched lockstep L-BFGS.
+"""Bounded multi-restart minimization: batched lockstep L-BFGS or adam, and
+host scipy L-BFGS-B restarts.
 
 Every restart is a lane of one batched optimizer: each iteration evaluates
 the objective of all R lanes in one batched call (one batched Cholesky for
@@ -22,11 +23,19 @@ chain, here written out by hand):
 As in the JAX version every lane computes a step every iteration; a retired
 lane's optimizer state is frozen, so it can record at most one further
 improvement of its best value.
+
+``method="adam"`` runs the same lockstep loop with optax's adam update in
+place of the L-BFGS step (b1 0.9, b2 0.999, eps 1e-8, learning rate 1e-2).
+:func:`minimize_scipy_restarts` drives scipy's L-BFGS-B from each restart
+on the host (a thread per restart where the host has cores), the value and
+gradient of each evaluation computed on the objective's device.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.log import get_logger
@@ -136,6 +145,19 @@ def _backtracking(obj, z, u, value, grad, lr_prev, max_steps: int,
     return new_lr[:, None] * u, new_lr
 
 
+def _adam_step(g, st, learning_rate, b1=0.9, b2=0.999, eps=1e-8):
+    """optax.adam's update for every lane: returns the step and the new
+    moments in a new dict (the caller freezes retired lanes)."""
+    mu = (1.0 - b1) * g + b1 * st["mu"]
+    nu = (1.0 - b2) * (g * g) + b2 * st["nu"]
+    count = st["count"] + 1
+    t = count.to(g.dtype)[:, None]
+    mu_hat = mu / (1.0 - b1 ** t)
+    nu_hat = nu / (1.0 - b2 ** t)
+    step = -learning_rate * (mu_hat / (torch.sqrt(nu_hat) + eps))
+    return step, dict(st, mu=mu, nu=nu, count=count)
+
+
 def minimize_restarts(
     fun: Callable,
     x0: torch.Tensor,
@@ -143,6 +165,7 @@ def minimize_restarts(
     method: str = "lbfgs",
     maxiter: int = 200,
     patience: int = 5,
+    learning_rate: float = 1e-2,
     gtol: float = 1e-6,
     ftol: float = 1e-9,
     decrease_factor: float = 0.45,
@@ -152,12 +175,13 @@ def minimize_restarts(
     """Minimize ``fun`` from each row of x0 (R, p); returns (best_x, best_f).
 
     ``fun`` maps a batch (R, p) to values (R,) and must be differentiable
-    with autograd. With ``return_all=True`` returns every restart's endpoint
-    (x_all (R, p), f_all (R,)) instead.
+    with autograd. ``method``: 'lbfgs' or 'adam' (``learning_rate``). With
+    ``return_all=True`` returns every restart's endpoint (x_all (R, p),
+    f_all (R,)) instead.
     """
-    if method != "lbfgs":
-        raise ValueError(f"Unknown device optimizer '{method}' (the port "
-                         "implements 'lbfgs')")
+    if method not in ("lbfgs", "adam"):
+        raise ValueError(f"Unknown device optimizer '{method}' (expected "
+                         "'lbfgs' or 'adam')")
     x0 = torch.atleast_2d(x0)
     R, p = x0.shape
     dev, dt = x0.device, x0.dtype
@@ -184,20 +208,28 @@ def minimize_restarts(
         best_z=z0, pat=torch.full((R,), patience, dtype=torch.int64, device=dev),
         active=ok,
     )
-    st = dict(count=torch.zeros(R, dtype=torch.int64, device=dev),
-              params=torch.zeros_like(z0), updates=torch.zeros_like(z0),
-              dpm=torch.zeros((R, _MEMORY, p), dtype=dt, device=dev),
-              dum=torch.zeros((R, _MEMORY, p), dtype=dt, device=dev),
-              wm=torch.zeros((R, _MEMORY), dtype=dt, device=dev),
-              lr=torch.ones(R, dtype=dt, device=dev))
+    if method == "lbfgs":
+        st = dict(count=torch.zeros(R, dtype=torch.int64, device=dev),
+                  params=torch.zeros_like(z0), updates=torch.zeros_like(z0),
+                  dpm=torch.zeros((R, _MEMORY, p), dtype=dt, device=dev),
+                  dum=torch.zeros((R, _MEMORY, p), dtype=dt, device=dev),
+                  wm=torch.zeros((R, _MEMORY), dtype=dt, device=dev),
+                  lr=torch.ones(R, dtype=dt, device=dev))
+    else:
+        st = dict(count=torch.zeros(R, dtype=torch.int64, device=dev),
+                  mu=torch.zeros_like(z0), nu=torch.zeros_like(z0))
 
     it = 0
     while it < maxiter and bool(c["active"].any()):
-        direction, new_st = _lbfgs_direction(c["grad"], c["z"], st)
-        step, new_lr = _backtracking(obj, c["z"], -direction, c["val"],
-                                     c["grad"], st["lr"],
-                                     max_backtracking_steps, decrease_factor)
-        new_st["lr"] = new_lr
+        if method == "lbfgs":
+            direction, new_st = _lbfgs_direction(c["grad"], c["z"], st)
+            step, new_lr = _backtracking(obj, c["z"], -direction, c["val"],
+                                         c["grad"], st["lr"],
+                                         max_backtracking_steps,
+                                         decrease_factor)
+            new_st["lr"] = new_lr
+        else:
+            step, new_st = _adam_step(c["grad"], st, learning_rate)
         z_new = c["z"] + step
         v_new, g_new = vg(z_new)
         ok = torch.isfinite(v_new)
@@ -221,7 +253,7 @@ def minimize_restarts(
         st = {k: torch.where(act.view((R,) + (1,) * (v.dim() - 1)), new_st[k], v)
               for k, v in st.items()}
         it += 1
-    log.debug(f"lockstep L-BFGS: {it} iterations over {R} lanes")
+    log.debug(f"lockstep {method}: {it} iterations over {R} lanes")
 
     best_z, best_v = c["best_z"], c["best_v"]
     z_all = torch.clamp(best_z, -_Z_CLIP, _Z_CLIP)
@@ -230,3 +262,77 @@ def minimize_restarts(
         return x_all, best_v
     i = int(torch.argmin(best_v))
     return x_all[i], best_v[i]
+
+
+def minimize_scipy_restarts(fun: Callable, x0, bounds=None, maxiter: int = 200,
+                            return_all: bool = False):
+    """Host scipy L-BFGS-B from each row of x0 (R, p), the restarts on a
+    thread pool where the host has cores to spare. ``fun`` maps a batch
+    (R, p) on its device to values (R,) and is differentiated with
+    autograd one point at a time. Returns (best_x, best_f) as tensors on
+    x0's device; with ``return_all`` also the numpy endpoints
+    (all_x (R', p), all_f (R',)) of the restarts whose objective was
+    finite. The starting points compete too. Raises when every restart
+    failed."""
+    from scipy.optimize import minimize as sp_minimize
+
+    x0_t = torch.atleast_2d(torch.as_tensor(x0))
+    dev, dt = x0_t.device, x0_t.dtype
+    x0 = np.atleast_2d(x0_t.detach().cpu().numpy().astype(np.float64))
+    R, p = x0.shape
+    bounds_arr = setup_bounds(bounds, p)
+    scipy_bounds = (None if bounds_arr is None else
+                    [(float(bounds_arr[0, i]), float(bounds_arr[1, i]))
+                     for i in range(p)])
+
+    def f_np(x):
+        with torch.enable_grad():
+            z = torch.as_tensor(x, dtype=dt, device=dev)[None, :]
+            z.requires_grad_(True)
+            v = fun(z)[0]
+            (g,) = torch.autograd.grad(v, z)
+        return float(v.detach()), g[0].detach().cpu().numpy().astype(np.float64)
+
+    def one_restart(xi):
+        try:
+            return sp_minimize(f_np, xi, jac=True, method="L-BFGS-B",
+                               bounds=scipy_bounds,
+                               options={"maxiter": maxiter})
+        except Exception:
+            return None
+
+    best_f, best_x = np.inf, None
+    for xi in x0:
+        v, _ = f_np(xi)
+        if np.isfinite(v) and v < best_f:
+            best_f, best_x = v, xi
+
+    workers = min(len(x0), os.cpu_count() or 1)
+    if workers > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            outcomes = list(ex.map(one_restart, x0))
+    else:
+        outcomes = [one_restart(xi) for xi in x0]
+    all_x, all_f = [], []
+    for i, res in enumerate(outcomes):
+        if res is None:
+            log.warning(f"scipy restart {i} raised (skipped)")
+            continue
+        # any finite endpoint competes: res.fun is the objective at res.x,
+        # also after an "ABNORMAL" line-search end near an optimum
+        if np.isfinite(res.fun):
+            all_x.append(np.asarray(res.x, dtype=np.float64))
+            all_f.append(float(res.fun))
+            if res.fun < best_f:
+                best_f, best_x = float(res.fun), res.x
+    if best_x is None:
+        raise RuntimeError(
+            "every optimizer restart failed (objective non-finite at all "
+            "initial points and no scipy run succeeded)")
+    best = (torch.as_tensor(np.asarray(best_x), dtype=dt, device=dev),
+            torch.as_tensor(best_f, dtype=dt, device=dev))
+    if return_all:
+        return best + (np.asarray(all_x), np.asarray(all_f))
+    return best

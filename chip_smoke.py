@@ -10,13 +10,21 @@ non-zero):
 2. hold the Gram forward kernel against its plain PyTorch version on the
    card, over rbf/matern, float32/float64, a range of capacities (the main
    path's 128, 1024 and 1280 among them) and dimensions (d=40 stages its
-   dimensions in two chunks), one and four restart lanes;
+   dimensions in two chunks), one and four restart lanes, each case also
+   with one set of coordinates per lane (the input warp); and the warp
+   fit's own shape (cap 256, d=6, 8 lanes, per-lane x), there also two
+   launches bit for bit;
 2b. hold the Gram backward kernel against its plain version (rbf/matern,
    float64, four capacities, four dimensions, one and four lanes, a random
-   cotangent), and two of its launches against each other bit for bit;
-3. time both kernels on the card: device time from a CUDA graph of
+   cotangent), and two of its launches against each other bit for bit; then
+   its coordinate variant (dL/dx) the same way, with d in {1, 6, 30, 40},
+   shared and per-lane x, the warp fit's shape (cap 256, d=6, 8 lanes),
+   and pad rows exactly 0;
+3. time the kernels on the card: device time from a CUDA graph of
    back-to-back launches into preallocated outputs, the wrapper's wall per
-   call, the plain versions (CUDA events, median of 25) and the bound;
+   call, the plain versions (CUDA events, median of 25) and the bound; the
+   per-lane forward and the dL/dx backward at the warp fit's shape (cap
+   256, d=6, 8 lanes), at cap 384 and at d=30 (cap 1280, 4 lanes);
 4. run the slice end to end: BOBE on the banana toy, WIPStd acquisition with
    an NS-mode MC pool, on the card;
 5. the slice's operations at N=1024, d=8 (the bench.py cell): a GP fit, a
@@ -48,11 +56,31 @@ non-zero):
    that it ends on the final fit, the dynamic NS and its top-up (cut to 3
    merged runs in all, from 16); checked for its termination, a finite
    logZ, an engaged classifier and final samples in the box, with its
-   timing ledger.
+   timing ledger;
+12. the input warp on phase 10's gated planck-like state: neg_mll and its
+   gradient at the JAX package's fitted warp and an 8-restart warp fit
+   (every objective through the per-lane forward and the dL/dx backward),
+   held to the JAX package within its own roundoff sensitivity there (that
+   Gram's condition number is 1.8e14); a well-conditioned warp state at the
+   same shape (GP noise 1e-6): neg_mll and its gradient over 8 lanes at
+   rtol 1e-9, a fit no worse than the JAX package's + 1e-6 |f|; a WIPStd
+   batch in warp space, a convergence NS and a cold EHMC pool against the
+   JAX package's; then the SAAS prior at N=1024, d=8 (neg_mll at the JAX
+   package's fit within its roundoff sensitivity, one fit, timed; a
+   well-conditioned SAAS state at rtol 1e-9 and its fit within 1e-6 |f|)
+   and the same fit with optimizer="adam" and "scipy", timed;
+13. examples/rosenbrock_ei.py's LogEI run at its own settings, and an EI
+   run cut to 40 evaluations: termination, best point, ledger;
+14. a banana run with save=True cut at 24 evaluations (before any NS) and
+   resumed from its own files to "LogZ converged" (rows and start iteration restored, no
+   likelihood call on resume), a second resume that short-circuits with no
+   likelihood call, and a banana run through the multiprocess pool (4
+   workers that see no CUDA device) whose values equal the serial pool's.
 
-The kernels' launch counts are set to 0 just before each of phases 4 to 11
-and read just after; a phase that did not launch the forward kernel, or
-phase 6 without a backward launch, fails. The script prints the card's name
+The kernels' launch counts are set to 0 just before each of phases 4 to 14
+and read just after; a phase that did not launch the forward kernel, phase
+6 without a backward launch, or phase 12 without a per-lane forward and a
+dL/dx launch, fails. The script prints the card's name
 and power limit, one JSON line describing every kernel, and as its last
 line {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 before printing any result.
@@ -71,6 +99,9 @@ REPLACES = "bobe_tpu/ops/pallas_gram.py:79"
 # the backward has no TPU kernel: it replaces the JAX package's autodiff of
 # its XLA Gram build on the fit's Gram route
 REPLACES_BACKWARD = "bobe_tpu/models/gp.py:390"
+# the coordinate gradient replaces the JAX package's autodiff through its
+# warped Gram build (neg_mll under the input warp)
+REPLACES_BACKWARD_X = "bobe_tpu/models/gp.py:386"
 
 # NVIDIA H100 SXM peaks (data sheet): HBM3 bandwidth, FP64 and FP32 outside
 # the tensor cores
@@ -82,6 +113,13 @@ PEAK_FLOPS = {8: 34e12, 4: 67e12}
 # sum w * D^2 and ~5 for the weight
 FWD_OPS = (3, 20)
 BWD_OPS = (5, 25)
+# the coordinate variant adds, per dimension and entry, the product w * diff
+# and its two sums (row and column)
+BWD_X_OPS = (8, 25)
+# (cap, d, lanes, per-lane x) of the input warp's fits on the main path: the
+# planck-like warp fit of phase 12 (209 gated rows) and the planck-like warp
+# run (up to 141 rows), 8 restart lanes
+WARP_FIT_SHAPE = (256, 6, 8, True)
 
 # ---- phase 5 reference numbers of the JAX package (bobe_tpu as of commit
 # 155be3e, JAX 0.9.0, on the CPU), printed by
@@ -211,16 +249,19 @@ def phase_build():
             print(f"[phase 1] ptxas: {line.strip()}")
 
 
-def _inputs(cap, d, seed, dtype, device, lanes=None):
+def _inputs(cap, d, seed, dtype, device, lanes=None, per_lane=False):
     """x, mask (pad rows past 0.7 cap), lengthscales and amplitude: one set
-    ((d,), ()) or ``lanes`` restart lanes ((lanes, d), (lanes,)). Above d=8
-    the lengthscales grow as sqrt(d / 8), so that many correlations stay
-    well above roundoff and a fault in any dimension shows."""
+    ((d,), ()) or ``lanes`` restart lanes ((lanes, d), (lanes,)); with
+    ``per_lane`` x holds one set of coordinates per lane (lanes, cap, d).
+    Above d=8 the lengthscales grow as sqrt(d / 8), so that many
+    correlations stay well above roundoff and a fault in any dimension
+    shows."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    x = torch.as_tensor(rng.uniform(size=(cap, d)), device=device)
+    xshape = (lanes, cap, d) if per_lane else (cap, d)
+    x = torch.as_tensor(rng.uniform(size=xshape), device=device)
     n = max(1, int(0.7 * cap))
     mask = (torch.arange(cap, device=device) < n).double()
     shape = (d,) if lanes is None else (lanes, d)
@@ -240,44 +281,55 @@ def phase_kernel_check():
     worst = {torch.float64: 0.0, torch.float32: 0.0}
     tol = {torch.float64: (1e-10, 1e-12), torch.float32: (2e-5, 2e-5)}
     n_cases = 0
+    lane_x = 0
+    grid = [(cap, d, lanes, per_lane)
+            for cap in (100, 128, 256, 1000, 1001, 1024, 1280, 2048)
+            for d in (2, 8, 30, 40)
+            for lanes, per_lane in ((None, False), (4, False), (1, True),
+                                    (4, True))]
     for name in ("rbf", "matern"):
         for dt in (torch.float64, torch.float32):
-            for cap in (100, 128, 256, 1000, 1001, 1024, 1280, 2048):
-                for d in (2, 8, 30, 40):
-                    for lanes in (None, 4):
-                        x, mask, ls, amp, noise, n = _inputs(
-                            cap, d, 1000 * cap + d, dt, dev, lanes)
-                        got = kr.gram_masked(name, x, mask, ls, amp, noise)
-                        want = kr.gram_masked_plain(
-                            name, x.double(), mask.double(), ls.double(),
-                            amp.double(), noise)
-                        what = (f"gram_masked {name} {dt} cap={cap} d={d} "
-                                f"lanes={lanes or 1}")
-                        rtol, atol_rel = tol[dt]
-                        err = (got.double() - want).abs()
-                        bound = atol_rel * amp.double()[..., None, None] \
-                            + rtol * want.abs()
-                        if not bool((err <= bound).all()):
-                            raise AssertionError(
-                                f"{what}: max error {float(err.max()):.3e} "
-                                "beyond tolerance")
-                        if not torch.equal(got, got.transpose(-1, -2)):
-                            raise AssertionError(f"{what}: not exactly "
-                                                 "symmetric")
-                        eye = torch.eye(cap - n, dtype=dt, device=dev)
-                        if not torch.equal(got[..., n:, n:],
-                                           eye.expand_as(got[..., n:, n:])) \
-                                or bool(got[..., n:, :n].abs().max() != 0):
-                            raise AssertionError(f"{what}: pad block is not "
-                                                 "exactly the identity")
-                        worst[dt] = max(worst[dt], float(err.max()))
-                        n_cases += 1
+            for cap, d, lanes, per_lane in grid + [WARP_FIT_SHAPE]:
+                x, mask, ls, amp, noise, n = _inputs(
+                    cap, d, 1000 * cap + d, dt, dev, lanes, per_lane)
+                got = kr.gram_masked(name, x, mask, ls, amp, noise)
+                want = kr.gram_masked_plain(
+                    name, x.double(), mask.double(), ls.double(),
+                    amp.double(), noise)
+                what = (f"gram_masked {name} {dt} cap={cap} d={d} "
+                        f"lanes={lanes or 1} per-lane x={per_lane}")
+                lane_x += per_lane
+                rtol, atol_rel = tol[dt]
+                err = (got.double() - want).abs()
+                bound = atol_rel * amp.double()[..., None, None] \
+                    + rtol * want.abs()
+                if not bool((err <= bound).all()):
+                    raise AssertionError(
+                        f"{what}: max error {float(err.max()):.3e} beyond "
+                        "tolerance")
+                if not torch.equal(got, got.transpose(-1, -2)):
+                    raise AssertionError(f"{what}: not exactly symmetric")
+                eye = torch.eye(cap - n, dtype=dt, device=dev)
+                if not torch.equal(got[..., n:, n:],
+                                   eye.expand_as(got[..., n:, n:])) \
+                        or bool(got[..., n:, :n].abs().max() != 0):
+                    raise AssertionError(f"{what}: pad block is not exactly "
+                                         "the identity")
+                if (cap, d, lanes, per_lane) == WARP_FIT_SHAPE and not \
+                        torch.equal(got, kr.gram_masked(name, x, mask, ls,
+                                                        amp, noise)):
+                    raise AssertionError(f"{what}: two launches differ")
+                worst[dt] = max(worst[dt], float(err.max()))
+                n_cases += 1
     _sync()
-    print(f"[phase 2] {n_cases} cases (lanes 1 and 4) agree with "
+    print(f"[phase 2] {n_cases} cases (lanes 1, 4 and 8; {lane_x} of them "
+          f"with per-lane x, the warp fit's shape {WARP_FIT_SHAPE[:3]} "
+          f"among them) agree with "
           f"gram_masked_plain (f64 on the card): max abs err f64 "
           f"{worst[torch.float64]:.3e} (rtol 1e-10, atol 1e-12*amp), f32 "
           f"{worst[torch.float32]:.3e} (rtol 2e-5, atol 2e-5*amp); exactly "
-          "symmetric; pad block exactly the identity")
+          "symmetric; pad block exactly the identity; two launches at the "
+          "warp fit's shape bit-identical")
     return worst[torch.float64]
 
 
@@ -331,6 +383,93 @@ def phase_backward_check():
     return worst_abs
 
 
+def _dx_scale(name, x, mask, ls, amp, g):
+    """sum_j |W_ij| |x_ik - x_jk| / l_k^2 with W of |G|: the size of the
+    terms that dL/dx_ik sums (x (lanes, cap, d) or (cap, d))."""
+    import torch
+
+    from bobe_tpu_torch.ops import kernels as kr
+
+    X = x if x.dim() == 3 else x.expand(ls.shape[0], *x.shape)
+    xs = X / ls[:, None, :]
+    dsq = kr.sq_dist(xs, xs)
+    if name == "rbf":
+        dcorr = torch.exp(-0.5 * dsq)
+    else:
+        r = torch.sqrt(torch.clamp(dsq, min=1e-30))
+        dcorr = (5.0 / 3.0) * (1.0 + kr.SQRT5 * r) * torch.exp(-kr.SQRT5 * r)
+    ga = g.abs()
+    W = (ga + ga.transpose(-1, -2)) * (mask[:, None] * mask[None, :]) \
+        * amp[:, None, None] * dcorr
+    out = torch.stack([
+        torch.sum(W * (X[:, :, None, k] - X[:, None, :, k]).abs(), dim=-1)
+        for k in range(X.shape[-1])], dim=-1)
+    return out / (ls * ls)[:, None, :]
+
+
+def phase_backward_x_check():
+    """The coordinate variant of the backward against the plain backward
+    (rbf/matern, four capacities, d in {1, 6, 30, 40}, one and four lanes,
+    shared and per-lane x, and the warp fit's shape WARP_FIT_SHAPE; a random
+    cotangent that is not symmetric): dL/dx
+    within 1e-10 * sum_j |W_ij (x_ik - x_jk)| / l^2, the lengthscale and
+    amplitude parts within 1e-10 * sum |G dK/dtheta|, pad rows exactly 0,
+    and two launches bit-identical."""
+    import numpy as np
+    import torch
+
+    from bobe_tpu_torch.ops import kernels as kr
+
+    dev = torch.device("cuda")
+    worst_abs, worst_rel, n_cases = 0.0, 0.0, 0
+    grid = [(cap, d, lanes, per_lane)
+            for cap in (128, 384, 1280, 2048)
+            for d in (1, 6, 30, 40)
+            for lanes, per_lane in ((1, False), (4, False), (1, True),
+                                    (4, True))]
+    for name in ("rbf", "matern"):
+        for cap, d, lanes, per_lane in grid + [WARP_FIT_SHAPE]:
+            x, mask, ls, amp, _, n = _inputs(
+                cap, d, 9000 + cap + d, torch.float64, dev, lanes, per_lane)
+            rng = np.random.default_rng(cap + 10 * d + lanes)
+            g = torch.as_tensor(rng.normal(size=(lanes, cap, cap)),
+                                device=dev)
+            got = kr.gram_masked_backward_x(name, x, mask, ls, amp, g)
+            again = kr.gram_masked_backward_x(name, x, mask, ls, amp, g)
+            want = kr.gram_masked_backward_plain(name, x, mask, ls, amp, g,
+                                                 need_x=True)
+            scale = kr.gram_masked_backward_plain(name, x, mask, ls, amp,
+                                                  g.abs())
+            scale = scale + (_dx_scale(name, x, mask, ls, amp, g),)
+            what = (f"gram_masked_backward_x {name} cap={cap} d={d} "
+                    f"lanes={lanes} per-lane x={per_lane}")
+            for part, k, a, w, sc in zip(("ls", "amp", "x"), got, again,
+                                         want, scale):
+                err = (k - w).abs()
+                if not bool((err <= 1e-10 * sc + 1e-300).all()):
+                    raise AssertionError(f"{what}: d/d{part} error "
+                                         f"{float(err.max()):.3e} beyond "
+                                         "tolerance")
+                if not torch.equal(k, a):
+                    raise AssertionError(f"{what}: two launches differ in "
+                                         f"d/d{part}")
+                if part == "x":
+                    worst_abs = max(worst_abs, float(err.max()))
+                    worst_rel = max(worst_rel, float(
+                        (err / sc.clamp(min=1e-300)).max()))
+            if bool((got[2][:, n:] != 0).any()):
+                raise AssertionError(f"{what}: pad rows of dL/dx are not "
+                                     "exactly 0")
+            n_cases += 1
+    _sync()
+    print(f"[phase 2b] {n_cases} dL/dx cases agree with "
+          f"gram_masked_backward_plain(need_x=True): max abs err "
+          f"{worst_abs:.3e}, max err / sum_j|W (x_i - x_j)|/l^2 "
+          f"{worst_rel:.3e} (tolerance 1e-10); pad rows exactly 0; two "
+          "launches bit-identical in every case")
+    return worst_abs
+
+
 def _device_ms(launch, n=50, reps=5):
     """Device time of one launch: a CUDA graph of n back-to-back launches,
     replayed ``reps`` times between CUDA events; the median over n."""
@@ -368,17 +507,20 @@ def _wall_ms(fn, n=50):
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def bound_ms(kind, cap, d, lanes, itemsize=8):
+def bound_ms(kind, cap, d, lanes, itemsize=8, per_lane=False):
     """The least time for the work: each input read once and each output
     written once at the HBM rate, or the f64 (f32) operations on the
     cap (cap + 1) / 2 distinct entries at the FP64 (FP32) peak, whichever is
-    larger. Returns (ms, "bytes" or "operations")."""
-    per_dim, fixed = FWD_OPS if kind == "forward" else BWD_OPS
-    inputs = cap * d + cap + lanes * (d + 1)
+    larger. ``kind``: forward, backward or backward_x (which also writes
+    dL/dx). Returns (ms, "bytes" or "operations")."""
+    per_dim, fixed = {"forward": FWD_OPS, "backward": BWD_OPS,
+                      "backward_x": BWD_X_OPS}[kind]
+    inputs = (lanes if per_lane else 1) * cap * d + cap + lanes * (d + 1)
     # forward: writes K; backward: reads G, writes the gradients
     big = lanes * cap * cap
-    nbytes = itemsize * (inputs + big + (lanes * (d + 1) if kind ==
-                                         "backward" else 0))
+    outputs = {"forward": 0, "backward": lanes * (d + 1),
+               "backward_x": lanes * (d + 1) + lanes * cap * d}[kind]
+    nbytes = itemsize * (inputs + big + outputs)
     ops = lanes * cap * (cap + 1) / 2 * (per_dim * d + fixed)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_FLOPS[itemsize] * 1e3
@@ -397,48 +539,83 @@ def phase_kernel_time():
     out = {}
     for cap, d in ((128, 8), (1024, 8), (1280, 8), (2048, 8), (1280, 30)):
         for lanes in (1, 4):
-            x, mask, ls, amp, noise, _ = _inputs(cap, d, cap + lanes,
-                                                 torch.float64, dev, lanes)
-            g = torch.as_tensor(np.random.default_rng(cap).normal(
-                size=(lanes, cap, cap)), device=dev)
-            k_out = torch.empty((lanes, cap, cap), dtype=torch.float64,
-                                device=dev)
-            scratch = torch.empty(kr.backward_scratch_size(cap, d, lanes),
-                                  dtype=torch.float64, device=dev)
-            g_ls = torch.empty((lanes, d), dtype=torch.float64, device=dev)
-            g_amp = torch.empty((lanes,), dtype=torch.float64, device=dev)
-            runs = {
-                "forward": (
-                    lambda: kr.launch_forward("rbf", x, mask, ls, amp, noise,
-                                              k_out),
-                    lambda: kr.gram_masked("rbf", x, mask, ls, amp, noise),
-                    lambda: kr.gram_masked_plain("rbf", x, mask, ls, amp,
-                                                 noise)),
-                "backward": (
-                    lambda: kr.launch_backward("rbf", x, mask, ls, amp, g,
-                                               scratch, g_ls, g_amp),
-                    lambda: kr.gram_masked_backward("rbf", x, mask, ls, amp,
-                                                    g),
-                    lambda: kr.gram_masked_backward_plain("rbf", x, mask, ls,
-                                                          amp, g)),
-            }
-            for kind, (launch, wrapper, plain) in runs.items():
-                t_p0 = _median_ms(plain)
-                t_dev = _device_ms(launch)
-                t_wall = _wall_ms(wrapper)
-                t_p1 = _median_ms(plain)
-                t_bound, by = bound_ms(kind, cap, d, lanes)
-                row = {"ms": t_dev, "wrapper_ms": t_wall,
-                       "plain_ms": min(t_p0, t_p1), "bound_ms": t_bound,
-                       "bound_by": by}
-                out[(kind, cap, d, lanes)] = row
-                print(f"[phase 3] {kind} rbf f64 cap={cap} d={d} "
-                      f"lanes={lanes}: device {t_dev:.4f} ms, wrapper wall "
-                      f"{t_wall:.4f} ms/call, plain {row['plain_ms']:.4f} ms "
-                      f"(before/after {t_p0:.4f}/{t_p1:.4f}), bound "
-                      f"{t_bound:.4f} ms ({by}), device/bound "
-                      f"{t_dev / t_bound:.1f}x")
+            _time_shape(kr, dev, out, cap, d, lanes, per_lane=False)
+    # the input warp's fit: per-lane x, the forward and the dL/dx backward,
+    # at the planck-like warp fit's shape, at cap 384 and at d=30
+    for cap, d, lanes, _ in (WARP_FIT_SHAPE, (384, 6, 8, True),
+                             (1280, 30, 4, True)):
+        _time_shape(kr, dev, out, cap, d, lanes, per_lane=True)
     return out
+
+
+def _time_shape(kr, dev, out, cap, d, lanes, per_lane):
+    """Phase 3's timings of one shape into ``out``: with shared x the
+    forward and the backward; with per-lane x the forward and the
+    coordinate backward."""
+    import numpy as np
+    import torch
+
+    x, mask, ls, amp, noise, _ = _inputs(cap, d, cap + lanes,
+                                         torch.float64, dev, lanes,
+                                         per_lane)
+    g = torch.as_tensor(np.random.default_rng(cap).normal(
+        size=(lanes, cap, cap)), device=dev)
+    k_out = torch.empty((lanes, cap, cap), dtype=torch.float64,
+                        device=dev)
+    scratch = torch.empty(kr.backward_scratch_size(cap, d, lanes),
+                          dtype=torch.float64, device=dev)
+    g_ls = torch.empty((lanes, d), dtype=torch.float64, device=dev)
+    g_amp = torch.empty((lanes,), dtype=torch.float64, device=dev)
+    if per_lane:
+        dx_scratch = torch.empty(
+            kr.backward_dx_scratch_size(cap, d, lanes),
+            dtype=torch.float64, device=dev)
+        g_x = torch.empty((lanes, cap, d), dtype=torch.float64,
+                          device=dev)
+    runs = {
+        "forward": (
+            lambda: kr.launch_forward("rbf", x, mask, ls, amp, noise,
+                                      k_out),
+            lambda: kr.gram_masked("rbf", x, mask, ls, amp, noise),
+            lambda: kr.gram_masked_plain("rbf", x, mask, ls, amp,
+                                         noise)),
+        "backward": (
+            lambda: kr.launch_backward("rbf", x, mask, ls, amp, g,
+                                       scratch, g_ls, g_amp),
+            lambda: kr.gram_masked_backward("rbf", x, mask, ls, amp,
+                                            g),
+            lambda: kr.gram_masked_backward_plain("rbf", x, mask, ls,
+                                                  amp, g)),
+    }
+    if per_lane:
+        runs["backward_x"] = (
+            lambda: kr.launch_backward("rbf", x, mask, ls, amp, g,
+                                       scratch, g_ls, g_amp,
+                                       dx_scratch=dx_scratch,
+                                       grad_x=g_x),
+            lambda: kr.gram_masked_backward_x("rbf", x, mask, ls, amp,
+                                              g),
+            lambda: kr.gram_masked_backward_plain(
+                "rbf", x, mask, ls, amp, g, need_x=True))
+        del runs["backward"]
+    for kind, (launch, wrapper, plain) in runs.items():
+        t_p0 = _median_ms(plain)
+        t_dev = _device_ms(launch)
+        t_wall = _wall_ms(wrapper)
+        t_p1 = _median_ms(plain)
+        t_bound, by = bound_ms(kind, cap, d, lanes,
+                               per_lane=per_lane)
+        row = {"ms": t_dev, "wrapper_ms": t_wall,
+               "plain_ms": min(t_p0, t_p1), "bound_ms": t_bound,
+               "bound_by": by}
+        out[(kind, cap, d, lanes, per_lane)] = row
+        print(f"[phase 3] {kind} rbf f64 cap={cap} d={d} "
+              f"lanes={lanes} per-lane x={per_lane}: device "
+              f"{t_dev:.4f} ms, wrapper wall "
+              f"{t_wall:.4f} ms/call, plain {row['plain_ms']:.4f} ms "
+              f"(before/after {t_p0:.4f}/{t_p1:.4f}), bound "
+              f"{t_bound:.4f} ms ({by}), device/bound "
+              f"{t_dev / t_bound:.1f}x")
 
 
 def _state_on(gp, device_type):
@@ -705,16 +882,17 @@ def _device_launches(fn):
     return n or None
 
 
-def _moments_close(name, mean, std, ref_mean, ref_std, ref_name):
+def _moments_close(name, mean, std, ref_mean, ref_std, ref_name,
+                   label="8"):
     import numpy as np
 
     dm = float(np.max(np.abs(np.asarray(mean) - np.asarray(ref_mean))))
     ds = float(np.max(np.abs(np.asarray(std) - np.asarray(ref_std))))
-    print(f"[phase 8] {name} vs {ref_name}: max |mean diff| {dm:.4f}, max "
-          f"|std diff| {ds:.4f} (tolerance {POOL_ATOL})")
+    print(f"[phase {label}] {name} vs {ref_name}: max |mean diff| "
+          f"{dm:.4f}, max |std diff| {ds:.4f} (tolerance {POOL_ATOL})")
     if not (dm < POOL_ATOL and ds < POOL_ATOL):
-        raise AssertionError(f"phase 8: {name} pool moments differ from "
-                             f"{ref_name}'s beyond {POOL_ATOL}")
+        raise AssertionError(f"phase {label}: {name} pool moments differ "
+                             f"from {ref_name}'s beyond {POOL_ATOL}")
 
 
 def phase_pools(device):
@@ -1120,6 +1298,653 @@ def phase_planck_run(device):
             "svm_s": svm_s, "ledger": ledger}
 
 
+# ---- phase 12: the input warp and the SAAS prior
+# reference numbers of the JAX package, printed by
+#     JAX_PLATFORMS=cpu python tools/torch_port_reference.py --only-warp-saas
+# phase 10's planck-like points with gp_kwargs={"input_warp": True}: the
+# gated GP fitted with 8 restarts (maxiter 200, numpy seed 0), neg_mll and
+# its gradient at the fitted parameters, a convergence-mode static NS (numpy
+# seed 2), a cold ensemble-HMC pool (512 samples); bench.py's N=1024, d=8
+# data with lengthscale_prior="SAAS" fitted with 4 restarts (maxiter 30,
+# numpy seed 0) (JAX 0.9.0)
+JAX_WARP = {
+    "warp_log_params": [
+        -0.33343287410220745, 1.6092521332824028, -0.2792578790604294,
+        1.6094198444225691, 1.6094368375416779, 1.6094372130721708,
+        9.111336098971037, -0.03938276648448403, -0.010485989062404914,
+        -0.13622625679432146, -0.030674636387490805, -0.013886315197755818,
+        -0.007288536637922972, -0.04532375403460956, -0.0040354159174652605,
+        -0.1264624890322521, -0.04750318581678334, -0.009965587247081442,
+        -0.03268736114257609,
+    ],
+    "warp_gp_size": 209,
+    "warp_fit_neg_mll": -662.1023981306741,
+    "warp_neg_mll": -662.1023981306755,
+    "warp_neg_mll_grad": [
+        0.05883307711332913, -0.06918842319058496, -0.16774495976655063,
+        -4.5672840090105895, -39.634010401215214, -65.0369218197331,
+        0.04036934572064585, -0.007224605106810139, 0.780317857635114,
+        0.07144554021744343, -0.34548152169287855, -0.013516096232432502,
+        -0.8890599174704549, -0.03393442397473745, -0.4773849336717677,
+        0.25747832376670676, 0.012084361239804747, 0.5787240287229577,
+        -0.20333770801746254,
+    ],
+    "warp_logz": 9.630806425181865,
+    "warp_dlogz_sampler": 0.14511254063018875,
+    "warp_ehmc_mean": [
+        0.49982895589470133, 0.5016566522008218, 0.5061805447021034,
+        0.49817058307838363, 0.4993177439338571, 0.49918071025139,
+    ],
+    "warp_ehmc_std": [
+        0.049167512467074265, 0.03466288433392816, 0.051940447672755706,
+        0.036549970527140416, 0.03854038877093055, 0.052168477592905944,
+    ],
+    "saas_log_params": [
+        0.7735185987493418, 0.6859316324407039, 0.7576858233086144,
+        0.6488496150290021, 0.6277946333096873, 0.7478711441843019,
+        0.7130266985706782, 0.6756077831509397, 5.505064951025728,
+        -0.4233548068375085,
+    ],
+    "saas_fit_neg_mll": -1967.4759117855713,
+    "saas_neg_mll": -1967.4759437290961,
+}
+WARP_RESTARTS, WARP_MAXITER = 8, 200
+# The fitted warp and SAAS states above are ill-conditioned (the warped
+# gated Gram at noise 1e-8 has condition number 1.8e14): there roundoff alone
+# moves the objective far beyond rtol 1e-9. Their neg_mll, gradient and fit
+# are held to the JAX package's own roundoff sensitivity at that state (the
+# most its neg_mll and gradient move when the training coordinates move by
+# 1e-15 relative; 4 seeded draws), carried in JAX_ROUNDOFF. The
+# well-conditioned warp and SAAS states (GP noise 1e-6, a 1 %-noise target;
+# WC_WARP_* and WC_SAAS_* as in the tool) are held to WARP_RTOL for neg_mll
+# and each gradient component (relative to the lane's largest), and their
+# fits to the JAX package's + 1e-6 |f|.
+WARP_RTOL = 1e-9
+WC_WARP_N, WC_WARP_D, WC_WARP_SEED, WC_WARP_LANES = 200, 6, 12, 8
+WC_SAAS_N, WC_SAAS_D, WC_SAAS_SEED, WC_SAAS_LANES = 1024, 8, 14, 4
+# printed by
+#     JAX_PLATFORMS=cpu python tools/torch_port_reference.py --only-conditioning
+JAX_ROUNDOFF = {
+    "warp_roundoff_neg_mll": 0.00829293069398318,
+    "warp_roundoff_grad": 0.17236391552651675,
+    "saas_roundoff_neg_mll": 3.5929206660512136e-05,
+    "wc_warp_neg_mll": [
+        223.91122923327194, 244.46750923855285, 294.5167718134976,
+        250.05081762772204, 214.39554693804723, 265.17304069397284,
+        243.44156307452863, 291.72274424150936,
+    ],
+    "wc_warp_neg_mll_grad": [
+        [
+            -37.51495813590202, 4.595700325995062, -33.300550111646736,
+            -28.544118782538803, -29.708290358846458, -35.77170415862452,
+            29.265763774351175, -21.611052600713453, -18.10127067947058,
+            -15.897082405252302, -15.312812558431586, -13.284011478405956,
+            -3.926586960710036, 34.081095923423774, 55.38623655256813,
+            30.013846907833873, 33.32208565582962, 26.01961981313479,
+            22.031033177528045,
+        ],
+        [
+            -14.586655397803382, 57.937192714612465, -8.056932376829005,
+            13.347070607203298, 10.578706727709081, 3.5932657595759334,
+            -31.195994950341717, -2.6786912193910535, -71.04101477274622,
+            -15.84196796077086, -41.67931447717972, -31.950544197229796,
+            -3.1766753989953234, 27.93616863239371, 170.6570330417211,
+            44.88931515976317, 67.97525999350091, 47.96098624302096,
+            14.304496248444874,
+        ],
+        [
+            16.273229475817597, 208.51593961040976, 25.646622717444142,
+            151.7110673931981, 41.144289315566766, 74.07673374024331,
+            -109.25774052277528, 87.21967316121523, -220.17255389399062,
+            8.804273044570198, -171.35372253786875, 3.369626970017015,
+            22.245294255912412, -28.54188164517193, 471.5359422092697,
+            9.947411326149325, 198.2033231810137, 8.981199166624945,
+            -16.747923906391524,
+        ],
+        [
+            -25.739496286960986, 67.4114702997521, -10.646241878068768,
+            43.18464543222075, 1.1002147602220644, 5.599161413493582,
+            -25.22779826223859, 29.015837599247146, -84.04024392459883,
+            -13.753980809815083, -56.47282884920247, -10.89221755874955,
+            6.155675721204937, -3.796310088683821, 201.70725091854942,
+            33.710249348372585, 69.32792654253893, 27.522076568830027,
+            12.725274259432949,
+        ],
+        [
+            -46.70220475179199, 49.003892287231494, -18.70426109220363,
+            -7.5030220716567415, -16.643710785777753, -20.13001624992575,
+            -2.565135772453107, -9.267918322273708, -53.881526427779335,
+            -18.15576379029154, -32.78552146811541, -18.251186628806735,
+            -6.353258269542922, 17.81395228942545, 138.72636733573924,
+            33.55358876200812, 62.89013064904967, 28.54464958594933,
+            24.323563152228957,
+        ],
+        [
+            -28.806382594896277, 107.3577595016047, -15.667746959182113,
+            58.764684217847154, 6.384989518950666, 21.774546568226015,
+            -47.792421913112264, 27.15092555707418, -108.0597976282815,
+            -16.716047377913007, -77.36447365517625, -21.702169520302938,
+            1.0709420958495315, 1.3217296950576927, 245.78208666950889,
+            42.019366071785136, 108.17507187866589, 38.91802512695489,
+            17.816189059976775,
+        ],
+        [
+            -37.316004648751246, 33.85916644694617, -27.162062236330645,
+            14.1762080876163, -5.43155261379991, 8.887171726195945,
+            -8.884017878021679, 2.5963698573904432, -46.311130700993445,
+            -15.357033438868486, -44.71203788822954, -15.207715475446594,
+            -9.459553398592348, 12.404939325662767, 121.50119105026194,
+            38.009346542866204, 64.51578669892889, 36.795460768259716,
+            16.768423069095554,
+        ],
+        [
+            84.8290572301733, 140.42141093740148, 81.71922636760208,
+            184.73653463197388, 54.53452498545464, 104.53383681534486,
+            -117.9099056080199, 71.44216927395678, -179.27732469104552,
+            61.607514359922234, -106.9870351805211, 22.93969601264044,
+            53.08883712126458, -19.213752093399084, 375.2334436656979,
+            -40.075337252817796, 54.02266534663866, -11.086062501464806,
+            -55.37855933362129,
+        ],
+    ],
+    "wc_warp_fit_neg_mll": -155.52765937439295,
+    "wc_saas_neg_mll": [
+        476.162429152472, 527.5896469618481, 727.4376117816404,
+        679.3623964465472,
+    ],
+    "wc_saas_neg_mll_grad": [
+        [
+            -276.57016250976335, -320.6657789794434, -298.7501028722695,
+            -284.82810661484007, -262.4043310801689, -281.08761228121256,
+            -256.43953141277876, -258.46135652606085, 455.37461833396924,
+            -13.873908533204288,
+        ],
+        [
+            -228.35155551091486, -324.9400156793815, -302.76624364593584,
+            -271.27432144073794, -269.06433551898465, -255.33297657604493,
+            -247.94094185994436, -244.2024129275516, 442.93407091566274,
+            -13.782760686003158,
+        ],
+        [
+            -261.2351635799837, -284.7734132274255, -274.363744791537,
+            -258.45192981516726, -249.7795786679539, -245.38727704670654,
+            -219.88387808405045, -238.07409034363098, 467.43570819380994,
+            -13.96297784265937,
+        ],
+        [
+            -222.21228368499763, -319.3644693524468, -293.32810078413615,
+            -264.6408077298526, -303.5592763968646, -264.85139124196735,
+            -242.73721445479234, -228.3196018583473, 453.72221697350807,
+            -13.794522455006462,
+        ],
+    ],
+    "wc_saas_fit_neg_mll": -2176.5908805126132,
+}
+
+# ---- phase 13: examples/rosenbrock_ei.py's run at its own settings, then
+# acq="ei" cut to 40 evaluations
+ROSEN_RUN = dict(acq="logei", max_evals=120, max_gp_size=150, ei_goal=1e-8,
+                 convergence_n_iters=2, zeta_ei=0.01)
+EI_RUN_EVALS = 40
+
+# ---- phase 14: the banana run cut at BANANA_CUT evaluations with
+# save=True (min_evals above the cut, so no NS, and its final NUTS samples
+# cut to CUT_NUTS), resumed from its own files to "LogZ converged"; four
+# worker processes for the multiprocess pool
+BANANA_CUT = 24
+CUT_NUTS = {"num_chains": 4, "warmup_steps": 128, "samples_per_dim": 64,
+            "thinning": 1}
+POOL_WORKERS = 4
+
+
+class CountingLikelihood:
+    """A module-level wrapper of a likelihood that counts its calls (it
+    pickles for the worker processes)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = 0
+
+    def __call__(self, x):
+        self.calls += 1
+        return self.fn(x)
+
+
+def _wc_warp_data():
+    """The well-conditioned warp state's data and its lanes of
+    log-hyperparameters (tools/torch_port_reference.make_data_wc_warp)."""
+    import numpy as np
+
+    n, d = WC_WARP_N, WC_WARP_D
+    rng = np.random.default_rng(WC_WARP_SEED)
+    x = rng.uniform(size=(n, d))
+    x[0], x[1] = 0.0, 1.0
+    x[2, 0], x[3, -1] = 0.0, 1.0
+    y = -0.5 * np.sum(((x ** 2 - 0.3) / 0.25) ** 2, axis=1)
+    y = y + 0.01 * np.abs(y).std() * rng.normal(size=n)
+    rng = np.random.default_rng(WC_WARP_SEED + 1)
+    lp = np.concatenate([np.log(np.linspace(0.3, 0.6, d)), [np.log(2.0)],
+                         rng.normal(0.0, 0.4, d), rng.normal(0.0, 0.4, d)])
+    return x, y, lp[None] + rng.normal(0.0, 0.1, (WC_WARP_LANES, lp.size))
+
+
+def _wc_saas_data():
+    """The well-conditioned SAAS state's data and its lanes of
+    log-hyperparameters (tools/torch_port_reference.make_data_wc_saas)."""
+    import numpy as np
+
+    n, d = WC_SAAS_N, WC_SAAS_D
+    rng = np.random.default_rng(WC_SAAS_SEED)
+    x = rng.uniform(size=(n, d))
+    y = -0.5 * ((x[:, 0] - 0.4) / 0.2) ** 2 + 0.01 * rng.normal(size=n)
+    rng = np.random.default_rng(WC_SAAS_SEED + 2)
+    lp = np.concatenate([np.log(np.linspace(0.3, 0.6, d)), [np.log(2.0)],
+                         [np.log(0.5)]])
+    return x, y, lp[None] + rng.normal(0.0, 0.1, (WC_SAAS_LANES, lp.size))
+
+
+def _lanes_match(label, gp, lps, ref_val, ref_grad):
+    """neg_mll and its gradient over the restart lanes ``lps`` against the
+    JAX package's, at WARP_RTOL (each gradient component relative to its
+    lane's largest). Returns (max relative error of neg_mll, of the
+    gradient)."""
+    import numpy as np
+    import torch
+
+    from bobe_tpu_torch.models import gp as gpm
+
+    tlp = torch.as_tensor(lps, device=gp.device).requires_grad_(True)
+    val = gpm.neg_mll(gp.state, gp.cfg, tlp)
+    (grad,) = torch.autograd.grad(val.sum(), tlp)
+    val, grad = val.detach().cpu().numpy(), grad.cpu().numpy()
+    rv, rg = np.asarray(ref_val), np.asarray(ref_grad)
+    e_v = float(np.max(np.abs(val - rv) / np.abs(rv)))
+    e_g = float(np.max(np.max(np.abs(grad - rg), axis=1)
+                       / np.max(np.abs(rg), axis=1)))
+    print(f"[phase {label}] neg_mll over {len(lps)} restart lanes (cap "
+          f"{gp.state.cap}) against the JAX package's: max relative error "
+          f"{e_v:.2e}, gradient {e_g:.2e} (tolerance {WARP_RTOL:g})")
+    if e_v > WARP_RTOL or e_g > WARP_RTOL:
+        raise AssertionError(f"phase {label}: neg_mll or its gradient "
+                             "differs from the JAX package's beyond rtol "
+                             f"{WARP_RTOL:g}")
+    return e_v, e_g
+
+
+def _warp_gp(device, log_params=None):
+    """Phase 10's gated planck-like GP with the input warp, at its initial
+    hyperparameters or at ``log_params`` (ls, amp, log a, log b)."""
+    import numpy as np
+
+    from bobe_tpu_torch.models.clf_gp import GPwithClassifier
+
+    x, y = _planck_points(N_REF10, N_UNIF10, SEED10)
+    thr = _clf_threshold(x.shape[1])
+    gp = GPwithClassifier(train_x=x, train_y=y, clf_type="svm",
+                          minus_inf=MINUS_INF10, clf_threshold=thr,
+                          gp_threshold=2 * thr, probability_threshold=0.5,
+                          input_warp=True, device=device)
+    if log_params is not None:
+        gp.update_hyperparams(np.asarray(log_params))
+    return gp
+
+
+def phase_warp_saas(device):
+    """The input warp (per-lane warped coordinates through the Gram kernels
+    and their dL/dx) and the SAAS prior, held to the JAX package."""
+    import numpy as np
+    import torch
+
+    from bobe_tpu_torch import samplers
+    from bobe_tpu_torch.acquisition import WIPStd, get_mc_samples
+    from bobe_tpu_torch.models import gp as gpm
+    from bobe_tpu_torch.ops import kernels as kr
+    from bobe_tpu_torch.utils.seed import set_global_seed
+
+    set_global_seed(0)
+    out = {}
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    ref = JAX_WARP
+    lp = np.asarray(ref["warp_log_params"])
+
+    # (a) neg_mll and its gradient at the JAX package's fitted parameters,
+    # an ill-conditioned state: held to the JAX package's own roundoff
+    # sensitivity there
+    rnd = JAX_ROUNDOFF
+    gp = _warp_gp(device)
+    if gp.gp_size != ref["warp_gp_size"]:
+        raise AssertionError(f"phase 12a: GP rows {gp.gp_size}, the JAX "
+                             f"package's {ref['warp_gp_size']}")
+    tlp = torch.as_tensor(lp, device=gp.device).requires_grad_(True)
+    val = gpm.neg_mll(gp.state, gp.cfg, tlp)
+    (grad,) = torch.autograd.grad(val, tlp)
+    val, grad = float(val.detach()), grad.cpu().numpy()
+    g_ref = np.asarray(ref["warp_neg_mll_grad"])
+    err = abs(val - ref["warp_neg_mll"])
+    g_err = float(np.max(np.abs(grad - g_ref)))
+    tol_v = max(WARP_RTOL * abs(ref["warp_neg_mll"]),
+                rnd["warp_roundoff_neg_mll"])
+    tol_g = max(WARP_RTOL * float(np.max(np.abs(g_ref))),
+                rnd["warp_roundoff_grad"])
+    print(f"[phase 12a] warped gated planck-like GP ({gp.gp_size} rows, cap "
+          f"{gp.state.cap}, {lp.size} hyperparameters) on {device}: neg_mll "
+          f"at the JAX package's fit {val:.10f} (JAX {ref['warp_neg_mll']:.10f}"
+          f", |diff| {err:.3e}, relative {err / abs(val):.2e}; tolerance "
+          f"{tol_v:.3e}, the JAX package's own roundoff sensitivity there); "
+          f"gradient max |diff| {g_err:.3e} (max |grad| "
+          f"{np.max(np.abs(g_ref)):.3e}, tolerance {tol_g:.3e})")
+    if err > tol_v or g_err > tol_g:
+        raise AssertionError("phase 12a: neg_mll or its gradient differs "
+                             "from the JAX package's beyond its roundoff")
+    out.update(neg_mll_abs_err=err, grad_err=g_err)
+
+    # (b) the fit: 8 restarts from the JAX package's seeds
+    nx0 = kr.gram_masked_backward_x.launches
+    info, t_fit = _timed(lambda: gp.fit(n_restarts=WARP_RESTARTS,
+                                        maxiter=WARP_MAXITER,
+                                        rng=np.random.default_rng(0)), device)
+    n_dx = kr.gram_masked_backward_x.launches - nx0
+    f_port, f_jax = -info["mll"], ref["warp_fit_neg_mll"]
+    tol = max(1e-6 * abs(f_jax), rnd["warp_roundoff_neg_mll"])
+    print(f"[phase 12b] warp fit ({WARP_RESTARTS} restarts, maxiter "
+          f"{WARP_MAXITER}) {t_fit:.3f} s: neg_mll {f_port:.6f} (JAX package "
+          f"from the same restarts {f_jax:.6f}, difference "
+          f"{f_port - f_jax:+.3e}, tolerance {tol:.3e}: the JAX package's "
+          f"roundoff sensitivity); {n_dx} dL/dx backward launches; fitted "
+          f"warp a {np.exp(gp.state.log_wa.cpu().numpy())}, b "
+          f"{np.exp(gp.state.log_wb.cpu().numpy())}")
+    if n_dx <= 0:
+        raise AssertionError("phase 12b: the warp fit launched no dL/dx "
+                             "backward")
+    if not f_port <= f_jax + tol:
+        raise AssertionError("phase 12b: the warp fit is worse than the JAX "
+                             "package's")
+    out.update(fit_s=t_fit, fit_neg_mll=f_port, dx_launches=n_dx)
+
+    # (b2) the well-conditioned warp state at the warp fit's shape: neg_mll
+    # and its gradient over 8 lanes at rtol 1e-9, and a fit
+    xw, yw, wlps = _wc_warp_data()
+    wg = gpm.GP(train_x=xw, train_y=yw, noise=1e-6, input_warp=True,
+                device=device)
+    nx0 = kr.gram_masked_backward_x.launches
+    out["wc_warp_err"] = _lanes_match("12b", wg, wlps,
+                                      rnd["wc_warp_neg_mll"],
+                                      rnd["wc_warp_neg_mll_grad"])
+    winfo, t_wfit = _timed(lambda: wg.fit(n_restarts=WARP_RESTARTS,
+                                          maxiter=WARP_MAXITER,
+                                          rng=np.random.default_rng(0)),
+                           device)
+    n_wdx = kr.gram_masked_backward_x.launches - nx0
+    f_port, f_jax = -winfo["mll"], rnd["wc_warp_fit_neg_mll"]
+    print(f"[phase 12b] well-conditioned warp fit (N={WC_WARP_N}, "
+          f"d={WC_WARP_D}, {WARP_RESTARTS} restarts, maxiter {WARP_MAXITER}) "
+          f"{t_wfit:.3f} s: neg_mll {f_port:.8f} (JAX package {f_jax:.8f}, "
+          f"difference {f_port - f_jax:+.3e}, tolerance "
+          f"{1e-6 * abs(f_jax):.3e}: 1e-6 |f|); {n_wdx} dL/dx backward "
+          "launches with the lanes above")
+    if n_wdx <= 0 or not f_port <= f_jax + 1e-6 * abs(f_jax):
+        raise AssertionError("phase 12b: the well-conditioned warp fit "
+                             "launched no dL/dx backward or is worse than "
+                             "the JAX package's")
+    out.update(wc_fit_s=t_wfit, wc_fit_neg_mll=f_port)
+
+    # (c) a WIPStd batch in warp space over a uniform pool of 256 points
+    mc = get_mc_samples(gp, method="uniform", num_samples=256,
+                        np_rng=np.random.default_rng(4))
+    (pts, vals), t_acq = _timed(lambda: WIPStd().get_next_batch(
+        gp, n_batch=4, acq_kwargs={"mc_samples": mc, "mc_points_size": 256},
+        rng=np.random.default_rng(5)), device)
+    if pts.shape != (4, 6) or not np.all(np.isfinite(vals)) \
+            or not np.all((pts >= 0) & (pts <= 1)):
+        raise AssertionError(f"phase 12c: bad batch {pts} {vals}")
+    print(f"[phase 12c] WIPStd batch of 4 in warp space {t_acq:.3f} s: "
+          f"values {np.array2string(vals, precision=4)}")
+    out["wip_batch_s"] = t_acq
+
+    # (d) convergence NS on the JAX package's fitted warp state
+    ns_gp = _warp_gp(device, lp)
+    (smp, z, ok), t_ns = _timed(lambda: samplers.nested_sampling(
+        ns_gp, mode="convergence", rng=np.random.default_rng(2),
+        generator=gen(2)), device)
+    s_jax = ref["warp_dlogz_sampler"]
+    tol = 3.0 * math.sqrt(s_jax ** 2 + z["dlogz_sampler"] ** 2) + 0.02
+    diff = z["mean"] - ref["warp_logz"]
+    print(f"[phase 12d] convergence NS on the JAX package's warp state "
+          f"{t_ns:.3f} s ({smp['n_calls']} surrogate calls): logZ "
+          f"{z['mean']:.4f} +- {z['dlogz_sampler']:.4f}; JAX package "
+          f"{ref['warp_logz']:.4f} +- {s_jax:.4f}; difference {diff:+.4f}, "
+          f"tolerance {tol:.4f}")
+    if not ok or abs(diff) >= tol:
+        raise AssertionError("phase 12d: NS failed or logZ is outside the "
+                             "tolerance of the JAX package's")
+    out.update(ns_s=t_ns, ns_logz=z["mean"])
+
+    # (e) a cold ensemble-HMC pool on the same state
+    pool, t_pool = _timed(lambda: samplers.sample_gp_ensemble(
+        ns_gp, num_samples=512, np_rng=np.random.default_rng(3),
+        generator=gen(3)), device)
+    _moments_close("warp EHMC", np.mean(pool["x"], axis=0),
+                   np.std(pool["x"], axis=0), ref["warp_ehmc_mean"],
+                   ref["warp_ehmc_std"], "JAX package", label="12e")
+    print(f"[phase 12e] cold gated EHMC pool on the warp state "
+          f"{t_pool:.3f} s")
+    out["ehmc_s"] = t_pool
+
+    # (f) SAAS at N=1024, d=8: neg_mll at the JAX package's fit (an
+    # ill-conditioned state: held to the JAX package's roundoff sensitivity
+    # there), one fit; then the well-conditioned SAAS state at rtol 1e-9 and
+    # its fit
+    x, y, _ = _bench_data()
+    saas = lambda **kw: gpm.GP(train_x=x, train_y=y, noise=1e-8,
+                               lengthscale_prior="SAAS", device=device, **kw)
+    sg = saas()
+    slp = np.asarray(ref["saas_log_params"])
+    sval = float(sg.neg_mll(slp))
+    serr = abs(sval - ref["saas_neg_mll"])
+    stol = max(WARP_RTOL * abs(ref["saas_neg_mll"]),
+               rnd["saas_roundoff_neg_mll"])
+    sinfo, t_saas = _timed(lambda: sg.fit(n_restarts=N_RESTARTS,
+                                          maxiter=MAXITER,
+                                          rng=np.random.default_rng(0)),
+                           device)
+    print(f"[phase 12f] SAAS GP (N={N_TRAIN}, d={NDIM}): neg_mll at the JAX "
+          f"package's fit {sval:.8f} (JAX {ref['saas_neg_mll']:.8f}, |diff| "
+          f"{serr:.3e}, relative {serr / abs(sval):.2e}, tolerance "
+          f"{stol:.3e}: the JAX package's roundoff sensitivity there); fit "
+          f"({N_RESTARTS} restarts, maxiter {MAXITER}) {t_saas:.3f} s: "
+          f"neg_mll {-sinfo['mll']:.6f} (JAX package "
+          f"{ref['saas_fit_neg_mll']:.6f}), tausq {sg.tausq:.4g}")
+    if serr > stol or not np.isfinite(sinfo["mll"]):
+        raise AssertionError("phase 12f: SAAS neg_mll differs from the JAX "
+                             "package's, or the fit failed")
+    out.update(saas_fit_s=t_saas, saas_fit_neg_mll=-sinfo["mll"])
+    xc, yc, clps = _wc_saas_data()
+    cg = gpm.GP(train_x=xc, train_y=yc, noise=1e-6, lengthscale_prior="SAAS",
+                tausq=0.5, device=device)
+    out["wc_saas_err"] = _lanes_match("12f", cg, clps,
+                                      rnd["wc_saas_neg_mll"],
+                                      rnd["wc_saas_neg_mll_grad"])
+    cinfo, t_cfit = _timed(lambda: cg.fit(n_restarts=N_RESTARTS,
+                                          maxiter=MAXITER,
+                                          rng=np.random.default_rng(0)),
+                           device)
+    f_port, f_jax = -cinfo["mll"], rnd["wc_saas_fit_neg_mll"]
+    print(f"[phase 12f] well-conditioned SAAS fit (N={WC_SAAS_N}, "
+          f"d={WC_SAAS_D}, {N_RESTARTS} restarts, maxiter {MAXITER}) "
+          f"{t_cfit:.3f} s: neg_mll {f_port:.8f} (JAX package {f_jax:.8f}, "
+          f"difference {f_port - f_jax:+.3e}, tolerance "
+          f"{1e-6 * abs(f_jax):.3e}: 1e-6 |f|)")
+    if not f_port <= f_jax + 1e-6 * abs(f_jax):
+        raise AssertionError("phase 12f: the well-conditioned SAAS fit is "
+                             "worse than the JAX package's")
+    out["wc_saas_fit_s"] = t_cfit
+
+    # (g) the same fit with optimizer="adam" and "scipy"
+    for opt in ("adam", "scipy"):
+        og = saas(optimizer=opt)
+        oinfo, t_opt = _timed(lambda: og.fit(n_restarts=N_RESTARTS,
+                                             maxiter=MAXITER,
+                                             rng=np.random.default_rng(0)),
+                              device)
+        print(f"[phase 12g] SAAS fit with optimizer={opt!r} ({N_RESTARTS} "
+              f"restarts, maxiter {MAXITER}) {t_opt:.3f} s: neg_mll "
+              f"{-oinfo['mll']:.6f}")
+        if not np.isfinite(oinfo["mll"]):
+            raise AssertionError(f"phase 12g: the {opt} fit failed")
+        out[f"{opt}_fit_s"] = t_opt
+    return out
+
+
+def _rosen_run(device, **run_kw):
+    """BOBE on the Rosenbrock valley at examples/rosenbrock_ei.py's
+    settings; returns (results, wall seconds)."""
+    from bobe_tpu_torch.bo import BOBE
+    from bobe_tpu_torch.models import toys
+
+    t0 = time.time()
+    bobe = BOBE(loglikelihood=toys.rosenbrock,
+                param_list=toys.rosenbrock_names,
+                param_bounds=toys.rosenbrock_bounds,
+                likelihood_name="rosenbrock", n_sobol_init=16, seed=0,
+                save=False, verbosity="WARNING", device=device)
+    res = bobe.run(**run_kw)
+    return res, time.time() - t0
+
+
+def phase_ei(device):
+    """examples/rosenbrock_ei.py's LogEI run, then an EI run cut to 40
+    evaluations."""
+    import numpy as np
+
+    out = {}
+    for label, kw in (("logei", ROSEN_RUN),
+                      ("ei", dict(ROSEN_RUN, acq="ei",
+                                  max_evals=EI_RUN_EVALS))):
+        res, wall = _rosen_run(device, **kw)
+        best = np.asarray(res["best_pt"])
+        dist = float(np.linalg.norm(best - 1.0))
+        ledger = res["results_manager"].get_timing_summary()["phase_times"]
+        print(f"[phase 13] rosenbrock acq={kw['acq']!r} on {device}: ended "
+              f"'{res['termination_reason']}' after {res['gp'].npoints} "
+              f"evaluations in {wall:.2f} s; best point "
+              f"{np.array2string(best, precision=5)} (distance to (1, 1) "
+              f"{dist:.4f}), value {res['best_val']:.6f}")
+        print(f"[phase 13] timing ledger (s): " + json.dumps(
+            {k: round(v, 3) for k, v in ledger.items()}))
+        if res["termination_reason"] not in (
+                "Maximum evaluations reached", "Maximum GP size reached",
+                f"{kw['acq'].upper()} goal reached") \
+                or not np.all(np.isfinite(best)):
+            raise AssertionError(f"phase 13: {kw['acq']} run ended "
+                                 f"'{res['termination_reason']}'")
+        out[label] = {"wall_s": wall, "n_evals": res["gp"].npoints,
+                      "distance": dist, "ledger": ledger}
+    return out
+
+
+def phase_resume_pool(device):
+    """A banana run with save=True cut at BANANA_CUT evaluations, resumed
+    from its own files to "LogZ converged"; a second resume that
+    short-circuits with no likelihood call; a banana run through the
+    multiprocess pool whose values equal the serial pool's."""
+    import numpy as np
+
+    from bobe_tpu_torch import bo
+    from bobe_tpu_torch.bo import BOBE
+    from bobe_tpu_torch.models import toys
+    from bobe_tpu_torch.parallel.pool import MultiprocessPool, SerialPool
+    from bobe_tpu_torch.utils.core import scale_from_unit
+
+    out = {}
+    run_kw = dict(acq="wipstd", min_evals=16, max_gp_size=200,
+                  logz_threshold=0.05, batch_size=4, fit_n_points=4,
+                  ns_n_points=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        like = CountingLikelihood(toys.banana)
+        make = lambda **kw: BOBE(like, param_list=toys.banana_names,
+                                 param_bounds=toys.banana_bounds,
+                                 likelihood_name="banana_resume",
+                                 n_sobol_init=8, seed=7, device=device,
+                                 save_dir=tmp, verbosity="WARNING", **kw)
+        first = make()
+        final_nuts, bo.FINAL_NUTS = bo.FINAL_NUTS, CUT_NUTS
+        try:
+            r1, t1 = _timed(lambda: first.run(
+                max_evals=BANANA_CUT, **dict(run_kw, min_evals=1000)), device)
+        finally:
+            bo.FINAL_NUTS = final_nuts
+        if r1["termination_reason"] != "Maximum evaluations reached":
+            raise AssertionError(f"phase 14a: the first run ended "
+                                 f"'{r1['termination_reason']}'")
+        n1, it1 = r1["gp"].npoints, first.current_iteration
+        calls = like.calls
+        second = make(resume=True)
+        if like.calls != calls or second.gp.npoints != n1 \
+                or second.start_iteration != it1:
+            raise AssertionError(
+                f"phase 14a: the resume restored {second.gp.npoints} rows "
+                f"from iteration {second.start_iteration} with "
+                f"{like.calls - calls} calls (want {n1} rows, iteration "
+                f"{it1}, 0 calls)")
+        if not np.array_equal(second.gp.train_x.cpu().numpy(),
+                              r1["gp"].train_x.cpu().numpy()):
+            raise AssertionError("phase 14a: resumed GP rows differ")
+        r2, t2 = _timed(lambda: second.run(max_evals=160, **run_kw), device)
+        print(f"[phase 14a] banana save=True cut at {BANANA_CUT} evaluations "
+              f"('{r1['termination_reason']}', {n1} rows, iteration {it1}) in "
+              f"{t1:.2f} s; resume=True restored {n1} rows from iteration "
+              f"{it1} with no likelihood call, then ran to "
+              f"'{r2['termination_reason']}' at {r2['gp'].npoints} "
+              f"evaluations in {t2:.2f} s: logZ {r2['logz']['mean']:.4f} "
+              f"(truth {BANANA_LOGZ})")
+        if r2["termination_reason"] != "LogZ converged":
+            raise AssertionError("phase 14a: the resumed run did not "
+                                 "converge")
+        calls = like.calls
+        third = make(resume=True)
+        r3 = third.run(max_evals=160, **run_kw)
+        print(f"[phase 14b] a second resume at logz_threshold "
+              f"{run_kw['logz_threshold']}: '{r3['termination_reason']}', "
+              f"{like.calls - calls} likelihood calls, logZ "
+              f"{r3['logz']['mean']:.4f}")
+        if r3["termination_reason"] != "Already converged in previous run" \
+                or like.calls != calls:
+            raise AssertionError("phase 14b: the converged resume did not "
+                                 "short-circuit")
+        out.update(cut_s=t1, resume_s=t2, n_evals=r2["gp"].npoints)
+
+    pool = MultiprocessPool(n_workers=POOL_WORKERS)
+    res, t_mp = _timed(lambda: BOBE(
+        toys.banana, param_list=toys.banana_names,
+        param_bounds=toys.banana_bounds, likelihood_name="banana_pool",
+        n_sobol_init=8, seed=7, device=device, save=False, pool=pool,
+        verbosity="WARNING").run(max_evals=160, **run_kw), device)
+    gp = res["gp"]
+    pts = scale_from_unit(gp.train_x.cpu().numpy(), toys.banana_bounds)
+    got = gp.train_y_raw.cpu().numpy()
+    want = SerialPool().run_map_objective(res["likelihood"], pts)
+    view = pool.run_map_objective(_worker_cuda_view, np.zeros((8, 1)))
+    pool.close()
+    print(f"[phase 14c] banana with pool='multiprocess' ({POOL_WORKERS} "
+          f"workers) on {device}: '{res['termination_reason']}' at "
+          f"{gp.npoints} evaluations in {t_mp:.2f} s; every value equals the "
+          f"serial pool's at the same points: "
+          f"{bool(np.array_equal(got, want))}; CUDA devices the workers see: "
+          f"{sorted(set(view.tolist()))}")
+    if not np.array_equal(got, want) or np.any(view != 0):
+        raise AssertionError("phase 14c: pool values differ from the serial "
+                             "pool's, or a worker sees a CUDA device")
+    out["pool_s"] = t_mp
+    return out
+
+
+def _worker_cuda_view(x):
+    """In a pool worker: the number of CUDA devices torch sees there."""
+    import torch
+
+    return float(torch.cuda.device_count())
+
+
 def main():
     import torch
 
@@ -1140,20 +1965,29 @@ def main():
            "replaces": REPLACES}
     bwd = {"name": "gram_masked_backward", "route": "cuda", "source": SOURCE,
            "replaces": REPLACES_BACKWARD}
+    bwd_x = {"name": "gram_masked_backward_x", "route": "cuda",
+             "source": SOURCE, "replaces": REPLACES_BACKWARD_X}
     phase_build()
     fwd["max_abs_err"] = phase_kernel_check()
     bwd["max_abs_err"] = phase_backward_check()
+    bwd_x["max_abs_err"] = phase_backward_x_check()
     times = phase_kernel_time()
-    # each kernel at its main-path shape: the N=1024 refresh, the d=30 fit
-    for entry, key in ((fwd, ("forward", 1024, 8, 1)),
-                       (bwd, ("backward", 1280, 30, 4))):
+    # each kernel at its main-path shape: the N=1024 refresh, the d=30 fit,
+    # the planck-like warp fit's per-lane shape
+    for entry, key in ((fwd, ("forward", 1024, 8, 1, False)),
+                       (bwd, ("backward", 1280, 30, 4, False)),
+                       (bwd_x, ("backward_x", *WARP_FIT_SHAPE))):
         entry.update(times[key], library_ms=None,
-                     shape={"cap": key[1], "d": key[2], "lanes": key[3]})
+                     shape={"cap": key[1], "d": key[2], "lanes": key[3],
+                            "per_lane_x": key[4]})
+    fwd["per_lane_x"] = times[("forward", *WARP_FIT_SHAPE)]
 
     # the main path, phase by phase: counts from 0, comparison launches
     # above excluded
-    counters = (kr.gram_masked, kr.gram_masked_backward)
+    counters = (kr.gram_masked, kr.gram_masked_backward,
+                kr.gram_masked_backward_x)
     launches = {}
+    lane_x = {}
     results = {}
     for label, run in (("4", lambda: phase_slice("cuda",
                                                   mc_points_method="NS")),
@@ -1163,23 +1997,34 @@ def main():
                        ("8", lambda: phase_pools("cuda")),
                        ("9", lambda: phase_fallback("cuda")),
                        ("10", lambda: phase_planck_state("cuda")),
-                       ("11", lambda: phase_planck_run("cuda"))):
+                       ("11", lambda: phase_planck_run("cuda")),
+                       ("12", lambda: phase_warp_saas("cuda")),
+                       ("13", lambda: phase_ei("cuda")),
+                       ("14", lambda: phase_resume_pool("cuda"))):
         for c in counters:
             c.launches = 0
+        kr.gram_masked.launches_lane_x = 0
+        t_phase = time.time()
         res = results[label] = run()
         launches[label] = [c.launches for c in counters]
+        lane_x[label] = kr.gram_masked.launches_lane_x
         print(f"[phase {label}] kernel launches: gram_masked "
-              f"{launches[label][0]}, gram_masked_backward "
-              f"{launches[label][1]}")
+              f"{launches[label][0]} (per-lane x {lane_x[label]}), "
+              f"gram_masked_backward {launches[label][1]}, "
+              f"gram_masked_backward_x {launches[label][2]}; phase wall "
+              f"{time.time() - t_phase:.1f} s")
         if launches[label][0] <= 0:
             raise AssertionError(f"phase {label} did not launch the Gram "
                                  "kernel")
     if launches["6"][1] <= 0:
         raise AssertionError("phase 6 did not launch the Gram backward "
                              "kernel")
+    if launches["12"][2] <= 0 or lane_x["12"] <= 0:
+        raise AssertionError("phase 12 did not launch the per-lane forward "
+                             "and the dL/dx backward")
     res = results["6"]
-    t_fwd = times[("forward", 1280, 30, 4)]["ms"]
-    t_bwd = times[("backward", 1280, 30, 4)]["ms"]
+    t_fwd = times[("forward", 1280, 30, 4, False)]["ms"]
+    t_bwd = times[("backward", 1280, 30, 4, False)]["ms"]
     k_ms = launches["6"][0] * t_fwd + launches["6"][1] * t_bwd
     print(f"[phase 6] the two kernels' share of the fit: "
           f"{launches['6'][0]} x {t_fwd:.4f} ms + {launches['6'][1]} x "
@@ -1191,10 +2036,11 @@ def main():
     print("[phase 7] timing ledger beside phase 4's (s): "
           + json.dumps({"phase 4 (NS pool)": ledgers["4"],
                         "phase 7 (EHMC pool)": ledgers["7"]}))
-    for i, entry in enumerate((fwd, bwd)):
+    for i, entry in enumerate((fwd, bwd, bwd_x)):
         entry["launches"] = sum(v[i] for v in launches.values())
         entry["launches_by_phase"] = {k: v[i] for k, v in launches.items()}
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    fwd["per_lane_x"]["launches_by_phase"] = lane_x
+    print(json.dumps({"kernels": [fwd, bwd, bwd_x]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

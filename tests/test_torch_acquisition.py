@@ -163,8 +163,8 @@ def test_mc_pools(gps):
         assert mc["method"] == "MCMC" and mc["x"].shape[1] == 2
         assert mc["x"].shape[0] == (256 if method == "EHMC" else 64)
         assert np.all((mc["x"] >= 0) & (mc["x"] <= 1))
-    with pytest.raises(NotImplementedError, match="EI"):
-        tacq.EI()
+    # EI is ported (tests/test_torch_ei.py holds it)
+    assert tacq.EI().name == "EI" and tacq.LogEI().name == "LogEI"
 
 
 def test_balanced_choice_matches_jax_and_kmeans_finds_blobs():

@@ -5,7 +5,7 @@ Gaussian toy with an analytic evidence; a classifier-gated run
 (``use_clf=True``) on a 2-d toy with a failure region that ends on the
 final dynamic NS (``do_final_ns=True``); and every branch the port has not
 reached raising ``NotImplementedError`` with its ROADMAP item instead of
-running as something else.
+running as something else; the GP options reaching BOBE's GP.
 
 These runs are small-budget counterparts of tests/test_bo_2d.py's with a
 loose threshold, checked against the analytic logZ.
@@ -70,12 +70,10 @@ def test_slice_end_to_end_on_a_gaussian(tmp_path):
 
 
 @pytest.mark.parametrize("init_kw,item", [
-    ({"gp_kwargs": {"lengthscale_prior": "SAAS"}}, "gp_options"),
-    ({"resume": True}, "resume"),
     ({"server": "/tmp/bobe.sock"}, "server"),
-    ({"pool": "multiprocess"}, "pools"),
+    ({"pool": "distributed"}, "pools"),
     ({"loglikelihood": {"likelihood": {}}}, "cobaya"),
-    ({"gp_kwargs": {"input_warp": True}}, "gp_options"),
+    ({"loglikelihood": "planck.yaml"}, "cobaya"),
 ])
 def test_unported_construction_branches_raise(tmp_path, init_kw, item):
     with pytest.raises(NotImplementedError) as err:
@@ -119,16 +117,23 @@ def test_nuts_pool_run_converges(tmp_path):
     assert bobe._nuts_warm["kind"] == "nuts"
 
 
-@pytest.mark.parametrize("run_kw,item", [
-    ({"acq": "logei"}, "ei"),
-    ({"acq": "ei"}, "ei"),
-    ({"acq": ("wipstd", "ei")}, "ei"),
+@pytest.mark.parametrize("init_kw", [
+    {"gp_kwargs": {"input_warp": True}},
+    {"gp_kwargs": {"lengthscale_prior": "SAAS"}},
+    {"optimizer": "adam"},
 ])
-def test_unported_run_branches_raise(tmp_path, run_kw, item):
-    bobe = _bobe(tmp_path, n_sobol_init=8, save=False)
-    with pytest.raises(NotImplementedError) as err:
-        bobe.run(max_evals=12, **run_kw)
-    assert config.ROADMAP_ITEMS[item] in str(err.value)
+def test_gp_options_reach_the_gp(tmp_path, init_kw):
+    """BOBE's gp_kwargs and optimizer reach its GP (the options themselves
+    are held to the JAX package in tests/test_torch_warp.py,
+    test_torch_saas.py and test_torch_optimizers.py)."""
+    bobe = _bobe(tmp_path, n_sobol_init=8, save=False, **init_kw)
+    cfg = bobe.gp.cfg
+    assert cfg.input_warp == ("input_warp" in init_kw.get("gp_kwargs", {}))
+    assert (cfg.lengthscale_prior == "SAAS") == \
+        ("lengthscale_prior" in init_kw.get("gp_kwargs", {}))
+    assert bobe.gp.optimizer_method == init_kw.get("optimizer", "lbfgs")
+    assert np.isfinite(float(bobe.gp.neg_mll(
+        np.log(bobe.gp.get_hyperparams().numpy()))))
 
 
 def test_no_successful_ns_falls_back_to_nuts_samples(tmp_path):

@@ -138,8 +138,10 @@ def test_gram_backward_kernel_matches_plain_on_card(cuda, name, cap, d,
 @pytest.mark.cuda
 def test_gram_kernel_refuses_what_it_cannot_do(cuda):
     """The gradient in the lengthscales and amplitude runs both kernels (the
-    launch counts move, never a plain path); a gradient in x raises, as do
-    a float32 backward, mixed dtypes and non-contiguous inputs."""
+    launch counts move, never a plain path); a gradient in x runs the
+    coordinate variant of the backward kernel, a gradient in the mask
+    raises, as do a float32 backward, mixed dtypes and non-contiguous
+    inputs."""
     x, mask, ls, amp = _inputs(256, 100, 4, seed=3, device=cuda)
     fwd, bwd = tkr.gram_masked.launches, tkr.gram_masked_backward.launches
     tls = ls.clone().requires_grad_(True)
@@ -148,8 +150,14 @@ def test_gram_kernel_refuses_what_it_cannot_do(cuda):
     assert bool(torch.isfinite(g).all())
     assert (tkr.gram_masked.launches, tkr.gram_masked_backward.launches) \
         == (fwd + 1, bwd + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tkr.gram_masked("rbf", x.clone().requires_grad_(True), mask, ls, amp,
+    bx = tkr.gram_masked_backward_x.launches
+    tx = x.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(
+        tkr.gram_masked("rbf", tx, mask, ls, amp, 1e-6).sum(), tx)
+    assert tkr.gram_masked_backward_x.launches == bx + 1
+    assert bool(torch.isfinite(gx).all())
+    with pytest.raises(ValueError, match="mask"):
+        tkr.gram_masked("rbf", x, mask.clone().requires_grad_(True), ls, amp,
                         1e-6)
     x32, m32, l32, a32 = (t.float() for t in (x, mask, ls, amp))
     K32 = tkr.gram_masked("rbf", x32, m32, l32.requires_grad_(True), a32,
@@ -213,3 +221,84 @@ def test_fit_above_the_perdim_budget_on_card(cuda, monkeypatch):
     f_cpu = -tgp.GP(train_x=x, train_y=y, noise=1e-8, device="cpu").fit(
         x0=x0, maxiter=100)["mll"]
     assert abs(f_card - f_cpu) <= 1e-7 * abs(f_cpu), (f_card, f_cpu)
+
+
+def _lane_inputs(lanes, cap, n, d, seed, device):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                  device=device)
+    return (t(rng.uniform(size=(lanes, cap, d))),
+            t((np.arange(cap) < n).astype(np.float64)),
+            t(rng.uniform(0.1, 1.0, size=(lanes, d))),
+            t(rng.uniform(0.5, 3.0, size=lanes)),
+            t(rng.normal(size=(lanes, cap, cap))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rbf", "matern"])
+@pytest.mark.parametrize("lanes,cap,n,d", [(1, 384, 300, 6), (8, 384, 300, 6),
+                                           (4, 1280, 1200, 30)])
+def test_per_lane_forward_matches_plain_on_card(cuda, name, lanes, cap, n,
+                                                d):
+    """One set of coordinates per lane (the input warp's fit): every lane
+    against the plain build, exactly symmetric, identity pad block."""
+    x, mask, ls, amp, _ = _lane_inputs(lanes, cap, n, d, 31, cuda)
+    before = (tkr.gram_masked.launches, tkr.gram_masked.launches_lane_x)
+    got = tkr.gram_masked(name, x, mask, ls, amp, 1e-6)
+    assert (tkr.gram_masked.launches, tkr.gram_masked.launches_lane_x) == \
+        (before[0] + 1, before[1] + 1)
+    want = tkr.gram_masked_plain(name, x, mask, ls, amp, 1e-6)
+    err = (got - want).abs()
+    assert bool((err <= 1e-12 * amp[:, None, None]
+                 + 1e-10 * want.abs()).all())
+    assert torch.equal(got, got.transpose(-1, -2))
+    eye = torch.eye(cap - n, dtype=torch.float64, device=cuda)
+    assert torch.equal(got[:, n:, n:], eye.expand(lanes, -1, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rbf", "matern"])
+@pytest.mark.parametrize("lanes,cap,n,d", [(8, 384, 300, 6),
+                                           (4, 1280, 1200, 30)])
+def test_backward_x_matches_plain_on_card(cuda, name, lanes, cap, n, d):
+    """dL/dx (and the lengthscale and amplitude parts) of the coordinate
+    variant against the plain backward for a cotangent that is not
+    symmetric, within 1e-10 of the largest term; pad rows exactly 0; two
+    launches bit-identical; the hyperparameter-only kernel unchanged."""
+    x, mask, ls, amp, g = _lane_inputs(lanes, cap, n, d, 32, cuda)
+    got = tkr.gram_masked_backward_x(name, x, mask, ls, amp, g)
+    again = tkr.gram_masked_backward_x(name, x, mask, ls, amp, g)
+    want = tkr.gram_masked_backward_plain(name, x, mask, ls, amp, g,
+                                          need_x=True)
+    for k, a, w in zip(got, again, want):
+        assert torch.equal(k, a)
+        assert float((k - w).abs().max()) <= 1e-10 * float(w.abs().max()) \
+            * cap
+    assert bool((got[2][:, n:] == 0).all())
+    ls_only = tkr.gram_masked_backward(name, x, mask, ls, amp, g)
+    for k, w in zip(ls_only, want[:2]):
+        assert float((k - w).abs().max()) <= 1e-10 * float(w.abs().max()) \
+            * cap
+
+
+@pytest.mark.cuda
+def test_warp_fit_on_card(cuda):
+    """A warp fit on the card runs every objective through the per-lane
+    forward and the dL/dx backward, and reaches the neg_mll of the same fit
+    on the CPU (plain versions) from the same x0 to 1e-6 relative."""
+    rng = np.random.default_rng(33)
+    x = rng.uniform(size=(60, 2))
+    y = -0.5 * np.sum(((x ** 2 - 0.3) / 0.25) ** 2, axis=1)
+    y = y + 0.01 * np.abs(y).std() * rng.normal(size=60)
+    x0 = np.zeros((4, 7))
+    x0[1:, :3] = rng.uniform(np.log(0.05), np.log(3.0), size=(3, 3))
+    x0[1:, 3:] = rng.normal(0.0, 0.1, size=(3, 4))
+    fx, bx = tkr.gram_masked.launches_lane_x, \
+        tkr.gram_masked_backward_x.launches
+    f_card = -tgp.GP(train_x=x, train_y=y, noise=1e-8, input_warp=True,
+                     device=cuda).fit(x0=x0, maxiter=100)["mll"]
+    assert tkr.gram_masked.launches_lane_x > fx
+    assert tkr.gram_masked_backward_x.launches > bx
+    f_cpu = -tgp.GP(train_x=x, train_y=y, noise=1e-8, input_warp=True,
+                    device="cpu").fit(x0=x0, maxiter=100)["mll"]
+    assert abs(f_card - f_cpu) <= 1e-6 * abs(f_cpu), (f_card, f_cpu)

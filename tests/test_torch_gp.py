@@ -274,12 +274,3 @@ def test_bounds_and_basins_match_jax():
         assert gf == wf
 
 
-# the DSLP prior is ported (tests/test_torch_clf_gp.py holds it)
-@pytest.mark.parametrize("kwargs", [{"input_warp": True},
-                                    {"lengthscale_prior": "SAAS"},
-                                    {"lengthscale_prior": "SAAS",
-                                     "tausq": 2.0}])
-def test_unported_gp_options_raise(kwargs):
-    x, y = _data(10, 2, seed=13)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tgp.GP(train_x=x, train_y=y, device="cpu", **kwargs)

@@ -83,3 +83,36 @@ def test_classifier_modules_import_neither_sklearn_nor_optax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_new_modules_import_no_jax_and_plots_import_matplotlib_lazily():
+    """The modules of the GP options, EI, resume, plots and the pool name
+    no JAX, optax, scikit-learn or JAX-package module; importing them adds
+    none, imports no matplotlib (the plots import it when they draw, so the
+    port runs where it is not installed) and no cloudpickle (the pool
+    imports it when it starts)."""
+    rels = ("ops/special.py", "ops/optimize.py", "ops/mll.py",
+            "models/gp.py", "acquisition.py", "bo.py", "utils/plot.py",
+            "utils/results.py", "parallel/pool.py")
+    for rel in rels:
+        tree = ast.parse((PORT / rel).read_text())
+        tops = {m.split(".")[0] for m in _imported_modules(tree)}
+        assert not tops & set(FORBIDDEN), (rel, tops & set(FORBIDDEN))
+    code = (
+        "import json, sys\n"
+        "before = set(sys.modules)\n"
+        "import bobe_tpu_torch.ops.special, bobe_tpu_torch.utils.plot\n"
+        "import bobe_tpu_torch.parallel.pool, bobe_tpu_torch.acquisition\n"
+        "added = sorted(m for m in set(sys.modules) - before\n"
+        "               if m.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
+        "                                      'sklearn', 'bobe_tpu',\n"
+        "                                      'matplotlib', 'cloudpickle'))\n"
+        "print(json.dumps(added))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -212,7 +212,9 @@ def test_gram_masked_plain_batches_over_lanes():
 def test_gram_masked_function_takes_the_plain_versions_on_cpu():
     """On CPU tensors GramMasked runs the plain forward and the plain
     backward: lanes in one call, gradients in ls and amp equal to the plain
-    backward's, no kernel launch counted; a gradient in x raises."""
+    backward's, no kernel launch counted; a gradient in x is the plain
+    backward's grad_x (summed over the lanes for a shared x); a gradient in
+    the mask raises."""
     x, mask, ls, amp, g = _lanes(128, 70, 3, 2, seed=22)
     fwd, bwd = tkr.gram_masked.launches, tkr.gram_masked_backward.launches
     tls = _t(ls).requires_grad_(True)
@@ -230,8 +232,14 @@ def test_gram_masked_function_takes_the_plain_versions_on_cpu():
     np.testing.assert_array_equal(gamp.numpy(), want_amp.numpy())
     assert (tkr.gram_masked.launches, tkr.gram_masked_backward.launches) \
         == (fwd, bwd)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tkr.gram_masked("rbf", _t(x).requires_grad_(True), _t(mask),
+    tx = _t(x).requires_grad_(True)
+    K = tkr.gram_masked("rbf", tx, _t(mask), _t(ls), _t(amp), 1e-8)
+    (gx,) = torch.autograd.grad(torch.sum(K * _t(g)), tx)
+    *_, want_x = tkr.gram_masked_backward_plain(
+        "rbf", _t(x), _t(mask), _t(ls), _t(amp), _t(g), need_x=True)
+    np.testing.assert_array_equal(gx.numpy(), want_x.sum(0).numpy())
+    with pytest.raises(ValueError, match="mask"):
+        tkr.gram_masked("rbf", _t(x), _t(mask).requires_grad_(True),
                         _t(ls[0]), _t(amp[0]), 1e-8)
 
 
