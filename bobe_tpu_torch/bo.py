@@ -10,8 +10,8 @@ with ``use_clf=True``, a classifier-gated one (models/clf_gp.py), with the
 GP's options (``gp_kwargs``: the input warp, the SAAS prior) and its fit's
 ``optimizer`` ('lbfgs', 'adam' or 'scipy'):
 
-* initial design = scrambled Sobol (+ user points), deduped, scaled to the
-  unit cube;
+* initial design = scrambled Sobol (+ Cobaya reference draws + user
+  points), deduped, scaled to the unit cube;
 * adaptive refit schedule by training-set size;
 * WIP loop: greedy batches, the MC-pool refresh overlapped with the
   likelihood batch on a thread (an EHMC/NUTS refresh re-warms from the
@@ -29,12 +29,15 @@ GP's options (``gp_kwargs``: the input warp, the SAAS prior) and its fit's
   iteration, or ends at once if it had converged below the new threshold;
 * the results dict and the result files of the JAX package.
 
-The GP state lives on ``device`` (``config.get_device()``, cuda, by default;
+The likelihood is a callable, a ``Likelihood``, or a Cobaya model given
+by its YAML path, YAML text or info dict (``CobayaLikelihood``). The GP
+state lives on ``device`` (``config.get_device()``, cuda, by default;
 without a card the constructor raises unless given ``device="cpu"``);
 likelihood evaluations run on the host through the evaluation pool (in
-process, or in worker processes with ``pool="multiprocess"``). Every branch
-the port has not reached yet (Cobaya, the server, the distributed pool)
-raises ``NotImplementedError`` naming its ROADMAP item.
+process, in worker processes with ``pool="multiprocess"``, or on every rank
+of a torch.distributed job with ``pool="distributed"``, where the ranks
+other than 0 serve evaluations inside the constructor and never touch a
+device). The server raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -85,6 +88,13 @@ def load_gp_file(filename: str, clf: bool, device=None):
     return cls.load(filename, device=device)
 
 
+def load_gp_statedict(state_dict: Dict[str, Any], clf: bool, device=None):
+    """The GP (or classifier GP) of a ``state_dict()`` of either package, on
+    ``device``."""
+    cls = GPwithClassifier if clf else GP
+    return cls.from_state_dict(state_dict, device=device)
+
+
 class BOBE:
     """Bayesian evidence via GP-surrogate Bayesian optimization."""
 
@@ -121,15 +131,25 @@ class BOBE:
         update_verbosity(verbosity)
         if server is not None or os.environ.get("BOBE_TPU_SERVER"):
             raise config.not_ported("The device server", "server")
-        self.device = config.resolve_device(device)
 
         self.pool = make_pool(pool) if isinstance(pool, str) else pool
-        self.loglikelihood = self._prepare_likelihood(
-            loglikelihood, param_list, param_bounds, param_labels,
-            likelihood_name, minus_inf)
-        self.ndim = len(self.loglikelihood.param_list)
-
+        self.is_main = self.pool.is_main_process
+        # setup runs under close-on-exit: a failure on rank 0 must still
+        # broadcast EXIT (pool.close() is idempotent) to the worker ranks
+        # waiting in worker_loop
         try:
+            self.loglikelihood = self._prepare_likelihood(
+                loglikelihood, param_list, param_bounds, param_labels,
+                likelihood_name, confidence_for_unbounded, minus_inf)
+            self.ndim = len(self.loglikelihood.param_list)
+            if not self.is_main:
+                # a worker rank serves likelihood evaluations until rank 0
+                # closes the pool; it never resolves or touches a device
+                # (its card may be hidden)
+                set_global_seed(seed)
+                self.pool.worker_loop(self.loglikelihood)
+                return
+            self.device = config.resolve_device(device)
             self._setup_main_process(seed, optimizer, save, save_dir,
                                      save_step, n_cobaya_init, n_sobol_init,
                                      acq, use_clf, clf_type,
@@ -141,7 +161,7 @@ class BOBE:
                                     else self.save_path, use_clf)
             if self.fresh_start:
                 train_x, train_y = self._get_initial_training_data(
-                    n_sobol_init, init_train_x, init_train_y)
+                    n_cobaya_init, n_sobol_init, init_train_x, init_train_y)
                 clf = ({"clf_type": clf_type, "clf_use_size": clf_use_size,
                         "clf_update_step": clf_update_step,
                         "clf_nsigma_threshold": clf_nsigma_threshold}
@@ -233,12 +253,17 @@ class BOBE:
 
     @staticmethod
     def _prepare_likelihood(loglikelihood, param_list, param_bounds,
-                            param_labels, likelihood_name, minus_inf
+                            param_labels, likelihood_name,
+                            confidence_for_unbounded, minus_inf
                             ) -> Likelihood:
         if isinstance(loglikelihood, Likelihood):
             return loglikelihood
         if isinstance(loglikelihood, (str, dict)):
-            return CobayaLikelihood(loglikelihood)  # raises: not ported
+            return CobayaLikelihood(
+                input_file_dict=loglikelihood,
+                confidence_for_unbounded=confidence_for_unbounded,
+                minus_inf=minus_inf,
+                name=likelihood_name or "CobayaLikelihood")
         if callable(loglikelihood):
             return Likelihood(loglikelihood=loglikelihood, param_list=param_list,
                               param_bounds=param_bounds,
@@ -247,10 +272,15 @@ class BOBE:
         raise ValueError("loglikelihood must be a callable, Cobaya YAML path, "
                          "Cobaya info dict, or Likelihood instance")
 
-    def _get_initial_training_data(self, n_sobol_init, init_train_x=None,
-                                   init_train_y=None):
+    def _get_initial_training_data(self, n_cobaya_init, n_sobol_init,
+                                   init_train_x=None, init_train_y=None):
+        """Sobol points, then (for a Cobaya likelihood) ``n_cobaya_init``
+        draws from its reference distribution, then the user's points;
+        deduped, in the unit cube."""
         from scipy.stats import qmc
 
+        if n_sobol_init + n_cobaya_init == 0:
+            raise ValueError("Need n_sobol_init or n_cobaya_init > 0")
         n = max(2, n_sobol_init)
         self.results_manager.start_timing("True Objective Evaluations")
         unit = qmc.Sobol(d=self.ndim, scramble=True, rng=self.np_rng).random(n)
@@ -258,6 +288,13 @@ class BOBE:
         log.info(f"Evaluating {n} Sobol initial points")
         vals = np.asarray(self.pool.run_map_objective(
             self.loglikelihood, pts)).reshape(-1, 1)
+        if isinstance(self.loglikelihood, CobayaLikelihood) \
+                and n_cobaya_init > 0:
+            log.info(f"Drawing {n_cobaya_init} Cobaya reference points")
+            draws = self.pool.get_cobaya_initial_points(
+                self.loglikelihood, n_cobaya_init, rng=self.np_rng)
+            pts = np.vstack([pts, np.asarray([p for p, _ in draws])])
+            vals = np.vstack([vals, np.asarray([[v] for _, v in draws])])
         if init_train_x is not None and init_train_y is not None:
             ix = np.atleast_2d(np.asarray(init_train_x))
             iy = np.atleast_2d(np.asarray(init_train_y)).reshape(-1, 1)
@@ -488,6 +525,8 @@ class BOBE:
             mc_points_size: int = 64, thinning: Optional[int] = None,
             num_chains: Optional[int] = None,
             mc_points_method: str = "EHMC", zeta_ei: float = 0.01):
+        if not self.is_main:
+            return None
         acqs = [acq] if isinstance(acq, str) else list(acq)
         for a in acqs:
             if a.lower() not in _ACQ_FUNCS:
@@ -528,6 +567,14 @@ class BOBE:
             self.do_final_ns = do_final_ns
             self.fit_n_points, self.ns_n_points = fit_n_points, ns_n_points
             self.batch_size = batch_size
+            # load balance: a batch of a multiple of the pool's size
+            if self.pool.is_distributed \
+                    and self.batch_size % self.pool.size != 0:
+                self.batch_size = max(
+                    (self.batch_size // self.pool.size) * self.pool.size,
+                    self.pool.size)
+                log.info(f"Adjusted batch_size to {self.batch_size} "
+                         f"(multiple of {self.pool.size} pool processes)")
             self.n_points_since_last_fit = 0
             self.n_points_since_last_ns = 0
             self.num_hmc_warmup, self.num_hmc_samples = num_hmc_warmup, num_hmc_samples

@@ -69,11 +69,12 @@ PREDICT_CHUNK = 16384
 
 
 # Work that the port has not reached yet, by its ROADMAP.md queue-1 entry.
+# Only the server has a branch that raises; with more than one card the port
+# runs every GP operation on its one device, where the JAX package would
+# shard over a mesh.
 ROADMAP_ITEMS = {
-    "rect_gram": "1. rectangular masked K(X, Xq) kernel",
-    "cobaya": "2. Cobaya",
-    "pools": "3. the Distributed pool and multi-GPU",
-    "server": "4. server",
+    "server": "1. server",
+    "multi_gpu": "2. multi-GPU",
 }
 
 

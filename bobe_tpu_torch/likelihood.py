@@ -1,17 +1,19 @@
-"""Likelihood adapter: wraps a user callable for safe, host-side scalar
-evaluation (copied from bobe_tpu/likelihood.py).
+"""Likelihood adapters: wrap user callables and Cobaya models for safe,
+host-side scalar evaluation (counterpart of bobe_tpu/likelihood.py).
 
 Exceptions / NaN / Inf collapse to ``minus_inf`` (failed regions are data,
-not errors) and bounds are validated as (2, d). The Cobaya adapter is not
-ported yet.
+not errors), bounds are validated as (2, d), and Cobaya log-posteriors get
+the log-prior-volume shift so logZ matches Cobaya's normalization. Cobaya
+itself is an optional dependency, imported when a ``CobayaLikelihood`` is
+built.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+import os
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 
-from . import config
 from .utils.log import get_logger
 
 log = get_logger("likelihood")
@@ -80,7 +82,86 @@ class Likelihood:
 
 
 class CobayaLikelihood(Likelihood):
-    """Cobaya-model adapter (not ported yet)."""
+    """Cobaya-model adapter (optional dependency).
 
-    def __init__(self, *args, **kwargs):
-        raise config.not_ported("The Cobaya likelihood adapter", "cobaya")
+    Builds the model from a YAML path, YAML text or info dict, pulls the
+    sampled-parameter names, bounds (with ``confidence_for_unbounded``) and
+    LaTeX labels, and adds the log-prior volume to each log-posterior
+    evaluation so evidences are normalized the way Cobaya reports them.
+
+    The adapter pickles as its info dict and settings, never as its model: a
+    Cobaya ``Model`` holds theory codes that do not pickle. Unpickling (in a
+    pool worker) builds the worker's own model with ``get_model(info)``, as
+    each MPI rank of the original BOBE does, so ``cobaya`` (or whatever
+    module stands in for it) must be importable there.
+    """
+
+    def __init__(self, input_file_dict: Union[str, Dict[str, Any]],
+                 confidence_for_unbounded: float = 0.9999995,
+                 minus_inf: float = -1e10,
+                 name: str = "CobayaLikelihood"):
+        try:
+            from cobaya.model import get_model
+            from cobaya.yaml import yaml_load
+        except ImportError as e:
+            raise ImportError(
+                "cobaya is required for CobayaLikelihood; install it, or "
+                "provide a plain callable instead.") from e
+
+        if isinstance(input_file_dict, str):
+            # a YAML file path as well as YAML text: a path fed to yaml_load
+            # parses as a bare string and fails with a confusing schema error
+            if os.path.isfile(input_file_dict):
+                with open(input_file_dict) as f:
+                    info = yaml_load(f.read())
+            else:
+                info = yaml_load(input_file_dict)
+        else:
+            info = input_file_dict
+        model = get_model(info)
+        param_list = list(model.parameterization.sampled_params())
+        bounds = np.asarray(model.prior.bounds(
+            confidence_for_unbounded=confidence_for_unbounded)).T
+        labels = [model.parameterization.labels()[k] for k in param_list]
+
+        self.cobaya_model = model
+        self._info = info
+        self._confidence_for_unbounded = confidence_for_unbounded
+        super().__init__(
+            loglikelihood=self._logpost, param_list=param_list,
+            param_labels=labels, param_bounds=bounds, name=name,
+            minus_inf=minus_inf)
+
+    def _logpost(self, x) -> float:
+        return self.cobaya_model.logpost(x, make_finite=False)
+
+    def __reduce__(self):
+        return (type(self), (self._info, self._confidence_for_unbounded,
+                             self.minus_inf, self.name))
+
+    def __call__(self, X) -> float:
+        val = super().__call__(X)
+        if val <= self.minus_inf:
+            val = self.minus_inf
+        return val + self.logprior_vol
+
+    def _get_single_valid_point(self, rng: np.random.Generator):
+        """One valid point from the Cobaya reference distribution and its
+        shifted log-posterior (run on the pool's workers).
+
+        ``logposterior_as_dict`` arrived in cobaya 3.2; older models reject
+        the keyword and return a LogPosterior namedtuple with a ``.logpost``
+        attribute (some 3.1.x releases a dict) instead. Both surfaces are
+        read."""
+        try:
+            pt, res = self.cobaya_model.get_valid_point(
+                max_tries=1000, ignore_fixed_ref=False,
+                logposterior_as_dict=True, random_state=rng)
+            lp = res["logpost"]
+        except TypeError:
+            pt, res = self.cobaya_model.get_valid_point(
+                max_tries=1000, ignore_fixed_ref=False, random_state=rng)
+            lp = res["logpost"] if isinstance(res, dict) else res.logpost
+        if lp < self.minus_inf:
+            lp = self.minus_inf
+        return pt, lp + self.logprior_vol

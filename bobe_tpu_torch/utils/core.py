@@ -1,8 +1,9 @@
 """Core math utilities: unit-cube scaling, resampling, KL diagnostics,
-thresholds and atomic file writes (numpy on the host)."""
+thresholds, atomic file writes (numpy on the host) and process helpers."""
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager, redirect_stderr, redirect_stdout
 
 import numpy as np
 from scipy.special import erfc, logsumexp
@@ -94,3 +95,40 @@ def atomic_write(path: str, writer, binary: bool = False):
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def kl_divergence_samples(prev_loglike, curr_loglike):
+    """Forward/reverse/symmetric KL between the normalised likelihood
+    weights of two sets of log-likelihoods at the same samples."""
+    from scipy import stats
+
+    p = np.exp(prev_loglike - np.max(prev_loglike))
+    q = np.exp(curr_loglike - np.max(curr_loglike))
+    p /= p.sum()
+    q /= q.sum()
+    fwd = stats.entropy(p, q)
+    rev = stats.entropy(q, p)
+    return {"forward": fwd, "reverse": rev, "symmetric": 0.5 * (fwd + rev)}
+
+
+@contextmanager
+def suppress_stdout_stderr():
+    """Silence noisy third-party output (theory codes, samplers)."""
+    with open(os.devnull, "w") as fnull:
+        with redirect_stderr(fnull) as err, redirect_stdout(fnull) as out:
+            yield (err, out)
+
+
+def is_cluster_environment() -> bool:
+    """True under a batch scheduler or MPI launcher, or when stdout is not a
+    terminal."""
+    indicators = [
+        "SLURM_JOB_ID", "PBS_JOBID", "LSB_JOBID", "SGE_TASK_ID",
+        "COBALT_JOBID", "MOAB_JOBID", "OMPI_COMM_WORLD_SIZE", "PMI_RANK",
+    ]
+    if any(os.getenv(v) for v in indicators):
+        return True
+    try:
+        return not os.isatty(1)
+    except Exception:
+        return True

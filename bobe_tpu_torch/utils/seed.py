@@ -45,6 +45,11 @@ def set_global_seed(seed: int | None = None, rank_offset: bool = True) -> int:
     return seed
 
 
+def ensure_reproducibility(seed: int | None = None) -> int:
+    """Seed every random stream (:func:`set_global_seed`); returns the seed."""
+    return set_global_seed(seed)
+
+
 def _ensure() -> None:
     if _global_seed is None:
         set_global_seed()

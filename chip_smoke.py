@@ -75,9 +75,25 @@ non-zero):
    resumed from its own files to "LogZ converged" (rows and start iteration restored, no
    likelihood call on resume), a second resume that short-circuits with no
    likelihood call, and a banana run through the multiprocess pool (4
-   workers that see no CUDA device) whose values equal the serial pool's.
+   workers that see no CUDA device), cut as the first run is, whose values
+   equal the serial pool's;
+15. examples/planck_lite_lcdm.py's constructor (a Cobaya info dict, 32
+   Sobol and 8 Cobaya points, the SVM-gated GP, the multiprocess pool) and
+   run, through a stand-in cobaya package written to a temporary directory
+   (the recorded LCDM-lite surface over make_planck_like's log-likelihood),
+   cut to 72 evaluations and ended on the final NS: the Cobaya draws equal
+   _mp_cobaya_point's rows for the run's seeds, the log prior volume is
+   applied, the values equal the serial pool's, logZ is finite;
+16. a gloo group of two local processes: rank 0 on the card runs phase 4's
+   banana (cut to 40 evaluations) and the stand-in's Cobaya draws through
+   the distributed pool, whose values equal the serial pool's; rank 1
+   (CUDA_VISIBLE_DEVICES="") serves them, sees 0 CUDA devices and exits
+   cleanly after EXIT;
+17. the cold start, in a fresh process from a copy of the package in a
+   temporary directory: the imports, CUDA's start, the full nvcc build, the
+   first GP fit and NS at N=1024, d=8 and a second of each.
 
-The kernels' launch counts are set to 0 just before each of phases 4 to 14
+The kernels' launch counts are set to 0 just before each of phases 4 to 16
 and read just after; a phase that did not launch the forward kernel, phase
 6 without a backward launch, or phase 12 without a per-lane forward and a
 dL/dx launch, fails. The script prints the card's name
@@ -624,9 +640,10 @@ def _state_on(gp, device_type):
                for t in (st.x, st.y_raw, st.chol, st.alpha, st.log_ls))
 
 
-def _banana_run(device, **run_kw):
-    """BOBE on the banana toy at tests/test_bo_2d.py's settings; ``run_kw``
-    overrides run()'s arguments. Returns (results, wall seconds)."""
+def _banana_run(device, pool="serial", **run_kw):
+    """BOBE on the banana toy at tests/test_bo_2d.py's settings through
+    ``pool``; ``run_kw`` overrides run()'s arguments. Returns (results, wall
+    seconds)."""
     import os
 
     from bobe_tpu_torch.bo import BOBE
@@ -641,7 +658,7 @@ def _banana_run(device, **run_kw):
         bobe = BOBE(toys.banana, param_list=toys.banana_names,
                     param_bounds=toys.banana_bounds,
                     likelihood_name="banana_smoke", n_sobol_init=8, seed=7,
-                    pool="serial", device=device, save_dir=tmp,
+                    pool=pool, device=device, save_dir=tmp,
                     verbosity="WARNING")
         res = bobe.run(**kw)
         for suffix in ("_results.pkl", ".txt", "_stats.json", "_timing.json"):
@@ -1186,24 +1203,27 @@ def phase_planck_state(device):
 
     # what the gate costs an NS inner iteration: a short NS (200 live
     # points, 30,000 calls) on the gated GP and on the plain GP of the same
-    # rows, its wall and its device launches (torch.profiler) per iteration
+    # rows, its wall per iteration; its device launches per iteration
+    # (torch.profiler) from a third as many calls, since the profiler's
+    # post-processing takes longer than the run
     for name, g in (("gated", gp), ("plain", GP.dummy_like(gp))):
         holder = {}
 
-        def short():
+        def short(maxcall=30000):
             holder["r"] = samplers.nested_sampling(
-                g, mode="convergence", nlive=200, maxcall=30000,
+                g, mode="convergence", nlive=200, maxcall=maxcall,
                 rng=np.random.default_rng(5), generator=gen(5),
                 warn_truncation=False)
 
         _, t = _timed(short, device)
         n_inner = holder["r"][0]["n_inner"]
-        n_launch = _device_launches(short)
+        n_launch = _device_launches(lambda: short(10000))
         per = "not measured" if n_launch is None else \
-            f"{n_launch / n_inner:.1f}"
+            f"{n_launch / holder['r'][0]['n_inner']:.1f}"
         print(f"[phase 10c] short NS on the {name} GP: {n_inner} inner "
-              f"iterations, {1e3 * t / n_inner:.3f} ms and {per} device "
-              "launches per inner iteration")
+              f"iterations, {1e3 * t / n_inner:.3f} ms per inner iteration; "
+              f"{per} device launches per inner iteration over the "
+              f"{holder['r'][0]['n_inner']} of a 10,000-call run")
         out[f"short_ns_{name}_ms_per_inner"] = 1e3 * t / n_inner
 
     # (d) a cold gated ensemble-HMC pool
@@ -1489,12 +1509,108 @@ EI_RUN_EVALS = 40
 
 # ---- phase 14: the banana run cut at BANANA_CUT evaluations with
 # save=True (min_evals above the cut, so no NS, and its final NUTS samples
-# cut to CUT_NUTS), resumed from its own files to "LogZ converged"; four
-# worker processes for the multiprocess pool
+# cut to CUT_NUTS), resumed from its own files to "LogZ converged"; the
+# multiprocess pool's banana run (four worker processes) cut the same way
 BANANA_CUT = 24
 CUT_NUTS = {"num_chains": 4, "warmup_steps": 128, "samples_per_dim": 64,
             "thinning": 1}
 POOL_WORKERS = 4
+
+# ---- phase 15: examples/planck_lite_lcdm.py's constructor and run through a
+# stand-in cobaya package (cobaya, CAMB and the Planck data are not on the
+# card's host), the run cut to max_evals=72 (from 500) and min_evals with it
+# (from 100). A cut run has not converged, and without an NS it would end on
+# the final NUTS fallback (2000 transitions per dimension): it ends on the
+# final NS instead (do_final_ns=True, the example's default is False), whose
+# unknown sampler noise gives 2 merged dynamic runs, and the merged-run cap
+# COBAYA_NS_BOOST_CAP = 2 (16 by default) leaves no top-up. The stand-in's
+# surface is the one recorded from cobaya for
+# examples/cosmo_input/LCDM_lite.yaml.
+COBAYA_SURFACE = "tests/data/cobaya_lcdm_lite_surface.json"
+COBAYA_INIT = dict(likelihood_name="planck_lite_lcdm", n_sobol_init=32,
+                   n_cobaya_init=8, use_clf=True, clf_type="svm", seed=10,
+                   pool="multiprocess")
+COBAYA_RUN = dict(acq="wipstd", min_evals=72, max_evals=72, max_gp_size=600,
+                  logz_threshold=0.02, fit_n_points=8, batch_size=4,
+                  ns_n_points=12, convergence_n_iters=2, do_final_ns=True)
+COBAYA_NS_BOOST_CAP = 2
+
+# ---- phase 16: a gloo group of two local processes; rank 1 sees no card.
+# The group's timeout bounds a worker's wait between rounds.
+DIST_TIMEOUT_S = 180
+DIST_BANANA_EVALS = 40
+DIST_COBAYA_DRAWS = 8
+
+# the stand-in cobaya.model of phases 15 and 16
+STAND_IN_MODEL = '''"""Stand-in for cobaya.model: the sampled parameters,
+bounds and labels of a recorded cobaya surface ("stand_in" in the info
+dict); the log-posterior of bobe_tpu_torch.models.toys.make_planck_like
+mapped affinely from those bounds onto its own (a failed "theory code"
+gives -inf); reference draws around its peak."""
+import numpy as np
+
+from bobe_tpu_torch.models.toys import make_planck_like
+
+
+class _Parameterization:
+    def __init__(self, surface):
+        self._surface = surface
+
+    def sampled_params(self):
+        return {k: None for k in self._surface["sampled_params"]}
+
+    def labels(self):
+        return dict(self._surface["labels"])
+
+
+class _Prior:
+    def __init__(self, bounds):
+        self._bounds = bounds
+
+    def bounds(self, confidence_for_unbounded=1.0):
+        return self._bounds.copy()  # (d, 2), as cobaya returns them
+
+
+class Model:
+    def __init__(self, info):
+        surface = info["stand_in"]
+        self.parameterization = _Parameterization(surface)
+        bounds = np.asarray(surface["bounds"], dtype=float)
+        self.prior = _Prior(bounds)
+        self._lo, self._width = bounds[:, 0], bounds[:, 1] - bounds[:, 0]
+        self._loglike, pb, _, self.logz_toy = make_planck_like(len(bounds))
+        self._plo, self._pwidth = pb[0], pb[1] - pb[0]
+
+    def logpost(self, x, make_finite=False):
+        u = (np.asarray(x, dtype=float) - self._lo) / self._width
+        try:
+            return float(self._loglike(self._plo + u * self._pwidth))
+        except RuntimeError:
+            return -np.inf
+
+    def get_valid_point(self, max_tries, ignore_fixed_ref,
+                        logposterior_as_dict, random_state):
+        for _ in range(max_tries):
+            y = self._loglike.unwarp(random_state.standard_normal(
+                len(self._lo)))
+            x = self._lo + (y - self._plo) / self._pwidth * self._width
+            lp = self.logpost(x)
+            if np.isfinite(lp):
+                return x, {"logpost": lp}
+        raise RuntimeError(f"no valid point in {max_tries} tries")
+
+
+def get_model(info):
+    return Model(info)
+'''
+
+STAND_IN_YAML = '''"""Stand-in for cobaya.yaml."""
+import yaml
+
+
+def yaml_load(text):
+    return yaml.safe_load(text)
+'''
 
 
 class CountingLikelihood:
@@ -1846,7 +1962,8 @@ def phase_resume_pool(device):
     """A banana run with save=True cut at BANANA_CUT evaluations, resumed
     from its own files to "LogZ converged"; a second resume that
     short-circuits with no likelihood call; a banana run through the
-    multiprocess pool whose values equal the serial pool's."""
+    multiprocess pool, cut the same way, whose values equal the serial
+    pool's."""
     import numpy as np
 
     from bobe_tpu_torch import bo
@@ -1914,11 +2031,16 @@ def phase_resume_pool(device):
         out.update(cut_s=t1, resume_s=t2, n_evals=r2["gp"].npoints)
 
     pool = MultiprocessPool(n_workers=POOL_WORKERS)
-    res, t_mp = _timed(lambda: BOBE(
-        toys.banana, param_list=toys.banana_names,
-        param_bounds=toys.banana_bounds, likelihood_name="banana_pool",
-        n_sobol_init=8, seed=7, device=device, save=False, pool=pool,
-        verbosity="WARNING").run(max_evals=160, **run_kw), device)
+    final_nuts, bo.FINAL_NUTS = bo.FINAL_NUTS, CUT_NUTS
+    try:
+        res, t_mp = _timed(lambda: BOBE(
+            toys.banana, param_list=toys.banana_names,
+            param_bounds=toys.banana_bounds, likelihood_name="banana_pool",
+            n_sobol_init=8, seed=7, device=device, save=False, pool=pool,
+            verbosity="WARNING").run(max_evals=BANANA_CUT,
+                                     **dict(run_kw, min_evals=1000)), device)
+    finally:
+        bo.FINAL_NUTS = final_nuts
     gp = res["gp"]
     pts = scale_from_unit(gp.train_x.cpu().numpy(), toys.banana_bounds)
     got = gp.train_y_raw.cpu().numpy()
@@ -1926,7 +2048,8 @@ def phase_resume_pool(device):
     view = pool.run_map_objective(_worker_cuda_view, np.zeros((8, 1)))
     pool.close()
     print(f"[phase 14c] banana with pool='multiprocess' ({POOL_WORKERS} "
-          f"workers) on {device}: '{res['termination_reason']}' at "
+          f"workers) cut at {BANANA_CUT} evaluations on {device}: "
+          f"'{res['termination_reason']}' at "
           f"{gp.npoints} evaluations in {t_mp:.2f} s; every value equals the "
           f"serial pool's at the same points: "
           f"{bool(np.array_equal(got, want))}; CUDA devices the workers see: "
@@ -1943,6 +2066,343 @@ def _worker_cuda_view(x):
     import torch
 
     return float(torch.cuda.device_count())
+
+
+def _stand_in_info():
+    """The info dict of the stand-in model: the recorded cobaya surface."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, COBAYA_SURFACE)) as f:
+        surface = json.load(f)
+    return {"likelihood": {"planck_like_stand_in": None},
+            "stand_in": surface}
+
+
+class _StandIn:
+    """Writes the stand-in cobaya package into a temporary directory, puts
+    that directory first on sys.path (forkserver workers start from the
+    parent's sys.path) and takes it away again, with the modules."""
+
+    def __enter__(self):
+        import os
+
+        self._tmp = tempfile.TemporaryDirectory()
+        self.path = self._tmp.name
+        pkg = os.path.join(self.path, "cobaya")
+        os.makedirs(pkg)
+        for name, text in (("__init__.py", '"""Stand-in cobaya."""\n'),
+                           ("model.py", STAND_IN_MODEL),
+                           ("yaml.py", STAND_IN_YAML)):
+            with open(os.path.join(pkg, name), "w") as f:
+                f.write(text)
+        self._drop()
+        sys.path.insert(0, self.path)
+        return self
+
+    def _drop(self):
+        for k in [k for k in sys.modules
+                  if k == "cobaya" or k.startswith("cobaya.")]:
+            del sys.modules[k]
+
+    def __exit__(self, *exc):
+        sys.path.remove(self.path)
+        self._drop()
+        self._tmp.cleanup()
+
+
+def phase_cobaya(device):
+    """examples/planck_lite_lcdm.py through the stand-in cobaya: the initial
+    design's Cobaya draws against _mp_cobaya_point's rows for the same
+    seeds, the pool's values against the serial pool's, the log-prior-volume
+    shift, and a finite logZ."""
+    import os
+
+    import numpy as np
+    from scipy.stats import qmc
+
+    from bobe_tpu_torch.bo import BOBE
+    from bobe_tpu_torch.likelihood import CobayaLikelihood
+    from bobe_tpu_torch.parallel.pool import SerialPool
+    from bobe_tpu_torch.utils.core import scale_from_unit
+
+    info = _stand_in_info()
+    with _StandIn(), tempfile.TemporaryDirectory() as tmp:
+        (bobe, t_init) = _timed(lambda: BOBE(
+            loglikelihood=info, save_dir=tmp, device=device,
+            verbosity="WARNING", **COBAYA_INIT), device)
+        lk = bobe.loglikelihood
+        if not isinstance(lk, CobayaLikelihood):
+            raise AssertionError("phase 15a: the info dict did not give a "
+                                 "CobayaLikelihood")
+        n_workers = bobe.pool.size
+        bounds = lk.param_bounds
+        x0 = scale_from_unit(bobe.gp.train_x_clf.copy(), bounds)
+        y0 = bobe.gp.train_y_clf.copy()
+        # the run's own seeds: Sobol's scrambling draws from the run's rng,
+        # then the multiprocess pool draws one seed per Cobaya point
+        rng = np.random.default_rng(COBAYA_INIT["seed"])
+        qmc.Sobol(d=lk.ndim, scramble=True, rng=rng).random(
+            COBAYA_INIT["n_sobol_init"])
+        seeds = rng.integers(0, 2**31 - 1, size=COBAYA_INIT["n_cobaya_init"])
+        # _mp_cobaya_point's body, in this process
+        rows = [lk._get_single_valid_point(np.random.default_rng(s))
+                for s in seeds]
+        found = 0
+        for pt, lp in rows:
+            hit = np.flatnonzero(np.all(np.isclose(x0, pt, rtol=1e-12,
+                                                   atol=1e-12), axis=1))
+            found += int(len(hit) == 1 and y0[hit[0]] == lp)
+        surface = info["stand_in"]
+        vol = float(np.sum(np.log(np.diff(np.asarray(surface["bounds"]),
+                                          axis=1))))
+        shift = [lk(pt) - lk.cobaya_model.logpost(pt) for pt, _ in rows]
+        print(f"[phase 15a] BOBE(<info dict>, {COBAYA_INIT}) on {device}: "
+              f"{len(y0)} initial rows in {t_init:.2f} s with {n_workers} "
+              f"workers; Cobaya draws found in the design with "
+              f"_mp_cobaya_point's values for the run's seeds: {found} of "
+              f"{len(rows)}; log prior volume {lk.logprior_vol:.6f} (the "
+              f"recorded bounds' {vol:.6f}), applied: "
+              f"{np.allclose(shift, vol, rtol=0, atol=1e-12)}")
+        if found != len(rows) or len(y0) != COBAYA_INIT["n_sobol_init"] \
+                + COBAYA_INIT["n_cobaya_init"]:
+            raise AssertionError("phase 15a: the Cobaya draws are not "
+                                 "_mp_cobaya_point's rows for the run's "
+                                 "seeds")
+        if abs(lk.logprior_vol - vol) > 1e-12 \
+                or not np.allclose(shift, vol, rtol=0, atol=1e-12) \
+                or lk.param_list != surface["sampled_params"]:
+            raise AssertionError("phase 15a: the adapter's parameters or "
+                                 "log prior volume are wrong")
+        cap = os.environ.get("BOBE_TPU_NS_BOOST_CAP")
+        os.environ["BOBE_TPU_NS_BOOST_CAP"] = str(COBAYA_NS_BOOST_CAP)
+        try:
+            res, t_run = _timed(lambda: bobe.run(**COBAYA_RUN), device)
+        finally:
+            if cap is None:
+                del os.environ["BOBE_TPU_NS_BOOST_CAP"]
+            else:
+                os.environ["BOBE_TPU_NS_BOOST_CAP"] = cap
+        gp = res["gp"]
+        pts = scale_from_unit(gp.train_x_clf, bounds)
+        got = gp.train_y_clf
+        want = SerialPool().run_map_objective(lk, pts)
+        logz = res["logz"]
+        truth = lk.cobaya_model.logz_toy + lk.logprior_vol
+        timing = res["results_manager"].get_timing_summary()["phase_times"]
+        print(f"[phase 15b] run({COBAYA_RUN}) in {t_run:.2f} s: "
+              f"'{res['termination_reason']}' at {len(got)} evaluations "
+              f"(batch size {bobe.batch_size}), logZ "
+              f"{logz.get('mean', float('nan')):.4f} (the stand-in's "
+              f"{truth:.4f}; the run is cut), values equal to the serial "
+              f"pool's at the same points (rtol 1e-12): "
+              f"{bool(np.allclose(got, want, rtol=1e-12, atol=0))}; "
+              f"classifier engaged: {bool(gp.use_clf)}")
+        print("[phase 15b] timing ledger (s): " + json.dumps(
+            {k: round(v, 3) for k, v in timing.items()}))
+        if not np.allclose(got, want, rtol=1e-12, atol=0):
+            raise AssertionError("phase 15b: the pool's values differ from "
+                                 "the serial pool's")
+        if not (logz and np.isfinite(logz["mean"])):
+            raise AssertionError(f"phase 15b: no finite logZ: {logz}")
+        if len(got) < COBAYA_RUN["max_evals"]:
+            raise AssertionError(f"phase 15b: ended at {len(got)} "
+                                 "evaluations")
+    return {"init_s": t_init, "run_s": t_run, "n_workers": n_workers,
+            "n_evals": len(got), "logz": logz["mean"], "ledger": timing}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _init_group(port, rank):
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=DIST_TIMEOUT_S))
+
+
+def phase_distributed(device):
+    """Rank 0 of a two-process gloo group on the card, rank 1 a local
+    process that sees no card: the banana run and the stand-in's Cobaya
+    draws through the distributed pool, against the serial pool."""
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from bobe_tpu_torch.likelihood import CobayaLikelihood
+    from bobe_tpu_torch.parallel.pool import DistributedPool, SerialPool
+    from bobe_tpu_torch.utils.core import scale_from_unit
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    with _StandIn() as stand_in:
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        env["PYTHONPATH"] = os.pathsep.join(
+            [stand_in.path, here]
+            + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        worker = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             str(port)], env=env, cwd=here, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            _init_group(port, 0)
+            try:
+                pool = DistributedPool()
+                res, wall = _banana_run(device, pool=pool,
+                                        mc_points_method="NS",
+                                        max_evals=DIST_BANANA_EVALS)
+                gp = res["gp"]
+                pts = scale_from_unit(gp.train_x.cpu().numpy(),
+                                      res["likelihood"].param_bounds)
+                got = gp.train_y_raw.cpu().numpy()
+                want = SerialPool().run_map_objective(res["likelihood"], pts)
+                lk = CobayaLikelihood(_stand_in_info())
+                cpool = DistributedPool()
+                draws, t_draw = _timed(lambda: cpool.get_cobaya_initial_points(
+                    lk, DIST_COBAYA_DRAWS), device)
+                cpool.close()
+            finally:
+                dist.destroy_process_group()
+            out, err = worker.communicate(timeout=60)
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+                worker.communicate()
+    serial_lp = [lk(pt) for pt, _ in draws]
+    draws_ok = all(lp == s for (_, lp), s in zip(draws, serial_lp))
+    marker = "DIST_WORKER_EXIT cuda_devices=0 cuda_initialized=False"
+    print(f"[phase 16] gloo group of 2 (rank 0 on {device}, rank 1 with "
+          f"CUDA_VISIBLE_DEVICES=''): dynamic task queue {pool._dyn}; "
+          f"banana NS pool '{res['termination_reason']}' at {gp.npoints} "
+          f"evaluations in {wall:.2f} s, logZ {res['logz']['mean']:.4f} "
+          f"(truth {BANANA_LOGZ}); values equal to the serial pool's: "
+          f"{bool(np.array_equal(got, want))}; {len(draws)} Cobaya draws "
+          f"over both ranks in {t_draw:.2f} s, each value the serial "
+          f"adapter's at its point: {draws_ok}; worker exit code "
+          f"{worker.returncode}, '{marker}' printed: {marker in out}")
+    if not pool._dyn:
+        raise AssertionError("phase 16: the dynamic task queue did not come "
+                             "up")
+    if not np.array_equal(got, want) or not draws_ok \
+            or len(draws) != DIST_COBAYA_DRAWS:
+        raise AssertionError("phase 16: the distributed pool's values "
+                             "differ from the serial pool's")
+    if worker.returncode != 0 or marker not in out:
+        raise AssertionError(f"phase 16: rank 1 did not exit cleanly "
+                             f"(code {worker.returncode}):\n{out[-2000:]}"
+                             f"\n{err[-3000:]}")
+    return {"banana_s": wall, "n_evals": gp.npoints, "draws_s": t_draw,
+            "logz": res["logz"]["mean"]}
+
+
+def _dist_worker(port):
+    """Rank 1 of phase 16: serves the banana run inside BOBE's constructor,
+    then the Cobaya draws, and reports what it saw of CUDA."""
+    import torch
+    import torch.distributed as dist
+
+    _init_group(port, 1)
+    from bobe_tpu_torch.bo import BOBE
+    from bobe_tpu_torch.likelihood import CobayaLikelihood
+    from bobe_tpu_torch.models import toys
+    from bobe_tpu_torch.parallel.pool import DistributedPool
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bobe = BOBE(toys.banana, param_list=toys.banana_names,
+                    param_bounds=toys.banana_bounds,
+                    likelihood_name="banana_smoke", n_sobol_init=8, seed=7,
+                    pool=DistributedPool(), save_dir=tmp,
+                    verbosity="WARNING")
+        if bobe.run() is not None:
+            raise AssertionError("a worker rank's run() returned a result")
+    DistributedPool().worker_loop(CobayaLikelihood(_stand_in_info()))
+    print(f"DIST_WORKER_EXIT cuda_devices={torch.cuda.device_count()} "
+          f"cuda_initialized={torch.cuda.is_initialized()}", flush=True)
+    dist.destroy_process_group()
+
+
+def phase_cold_start():
+    """A fresh process from a copy of the package in a temporary directory
+    (no compiled kernel library, no bytecode): the imports, CUDA's start,
+    the full nvcc build, the first GP fit and NS at N=1024, d=8 and, for
+    comparison, a second of each."""
+    import os
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(here, "bobe_tpu_torch"),
+                        os.path.join(tmp, "bobe_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.join(here, "chip_smoke.py"), tmp)
+        t0 = time.time()
+        out = subprocess.run([sys.executable, "chip_smoke.py", "--cold-start"],
+                             cwd=tmp, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.time() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"phase 17: the cold-start process failed:\n"
+                             f"{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])["cold_start"]
+    res["process_wall_s"] = wall
+    print("[phase 17] cold start in a fresh process (s): " + json.dumps(
+        {k: round(v, 3) if isinstance(v, float) else v
+         for k, v in res.items()}))
+    return res
+
+
+def _cold_start():
+    """The body of phase 17, in the fresh process."""
+    import os
+
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    t0 = time.perf_counter()
+    import torch
+    out["import_torch_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    import bobe_tpu_torch
+    out["import_bobe_tpu_torch_s"] = time.perf_counter() - t0
+    from bobe_tpu_torch.ops import kernels as kr
+
+    if not bobe_tpu_torch.__file__.startswith(here) or kr._LIBS:
+        raise AssertionError("the cold start did not import the copy, or "
+                             "found a library loaded")
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    out["cuda_init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kr.build_library()
+    out["nvcc_build_s"] = time.perf_counter() - t0
+    if not kr.build_info["path"].startswith(here):
+        raise AssertionError(f"the library was not built in the copy: "
+                             f"{kr.build_info['path']}")
+    for k in ("first", "second"):
+        gp, out[f"{k}_gp_build_s"] = _timed(lambda: build_gp_1024("cuda"),
+                                            "cuda")
+        x0 = fit_x0(gp)
+        info, out[f"{k}_fit_s"] = _timed(
+            lambda: gp.fit(x0=x0, maxiter=MAXITER), "cuda")
+        ns_gp = build_gp_1024("cuda", JAX_LOG_PARAMS)
+        (_, logz, ok), out[f"{k}_ns_s"] = _timed(
+            lambda: run_ns_1024(ns_gp, "cuda"), "cuda")
+        if not (ok and np.isfinite(logz["mean"]) and np.isfinite(info["mll"])):
+            raise AssertionError("the cold-start fit or NS failed")
+    out["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps({"cold_start": out}), flush=True)
 
 
 def main():
@@ -2000,7 +2460,9 @@ def main():
                        ("11", lambda: phase_planck_run("cuda")),
                        ("12", lambda: phase_warp_saas("cuda")),
                        ("13", lambda: phase_ei("cuda")),
-                       ("14", lambda: phase_resume_pool("cuda"))):
+                       ("14", lambda: phase_resume_pool("cuda")),
+                       ("15", lambda: phase_cobaya("cuda")),
+                       ("16", lambda: phase_distributed("cuda"))):
         for c in counters:
             c.launches = 0
         kr.gram_masked.launches_lane_x = 0
@@ -2040,6 +2502,7 @@ def main():
         entry["launches"] = sum(v[i] for v in launches.values())
         entry["launches_by_phase"] = {k: v[i] for k, v in launches.items()}
     fwd["per_lane_x"]["launches_by_phase"] = lane_x
+    phase_cold_start()
     print(json.dumps({"kernels": [fwd, bwd, bwd_x]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2048,4 +2511,9 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--dist-worker"]:
+        _dist_worker(int(sys.argv[2]))
+    elif sys.argv[1:] == ["--cold-start"]:
+        _cold_start()
+    else:
+        sys.exit(main())

@@ -71,9 +71,6 @@ def test_slice_end_to_end_on_a_gaussian(tmp_path):
 
 @pytest.mark.parametrize("init_kw,item", [
     ({"server": "/tmp/bobe.sock"}, "server"),
-    ({"pool": "distributed"}, "pools"),
-    ({"loglikelihood": {"likelihood": {}}}, "cobaya"),
-    ({"loglikelihood": "planck.yaml"}, "cobaya"),
 ])
 def test_unported_construction_branches_raise(tmp_path, init_kw, item):
     with pytest.raises(NotImplementedError) as err:

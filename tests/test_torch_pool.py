@@ -10,7 +10,6 @@ import sys
 import numpy as np
 import pytest
 
-from bobe_tpu_torch import config
 from bobe_tpu_torch.bo import BOBE
 from bobe_tpu_torch.models import toys
 from bobe_tpu_torch.parallel import pool as tpool
@@ -100,9 +99,10 @@ def test_make_pool_kinds():
     mp = tpool.make_pool("multiprocess", n_workers=3)
     assert isinstance(mp, tpool.MultiprocessPool) and mp.size == 3
     mp.close()
-    with pytest.raises(NotImplementedError) as err:
-        tpool.make_pool("distributed")
-    assert config.ROADMAP_ITEMS["pools"] in str(err.value)
+    # outside a torch.distributed job the distributed pool has size 1
+    dp = tpool.make_pool("distributed")
+    assert isinstance(dp, tpool.DistributedPool) and dp.size == 1
+    assert isinstance(tpool.make_pool("auto"), tpool.SerialPool)
     with pytest.raises(ValueError):
         tpool.make_pool("threads")
 
