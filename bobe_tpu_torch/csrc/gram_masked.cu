@@ -32,7 +32,7 @@
 //
 //   dL/dx_rik = -l_rk^-2 (x_ik sum_j W_ij - sum_j W_ij x_jk)
 //
-// Design.
+// Design of the forward and the hyperparameter backward.
 // * Tiles. A block owns one 64x64 output tile pair (bi >= bj) of one lane;
 //   the grid is (tile pairs, lanes), so all restart lanes go out in one
 //   launch. 256 threads, each holding a 4x4 register micro-tile at rows
@@ -40,43 +40,90 @@
 // * Scale once per panel. The block stages the scaled row and column panels
 //   x / l in shared memory, d in chunks of 32 dimensions, dividing each
 //   element once as it is loaded (cap * d * tiles divisions per lane where
-//   one per entry would be cap^2 * d). Chunking keeps the static shared
-//   memory at 33 KB (f64) for any d, under the 48 KB a block gets without
-//   cudaFuncSetAttribute, so no launch depends on an opt-in.
+//   one per entry would be cap^2 * d). Chunking keeps these two kernels'
+//   static shared memory at 33 KB (f64) for any d, under the 48 KB a block
+//   gets without an opt-in.
 // * Exact differences. Each entry sums (xs_ik - xs_jk)^2, not the
 //   |a|^2 + |b|^2 - 2ab expansion the TPU kernel feeds its matrix unit: no
-//   cancellation near the diagonal. This is also why there are no tensor
-//   cores here: the distance work is d * cap^2 / 2 FMAs with d <= ~30, the
-//   store is 8 bytes per entry and lane, and an FP64 mma would buy nothing
-//   at this arithmetic intensity and would cost the exactness.
+//   cancellation near the diagonal. This is also why the distances use no
+//   tensor cores: the distance work is d * cap^2 / 2 FMAs with d <= ~30,
+//   the store is 8 bytes per entry and lane, and an FP64 mma would buy
+//   nothing at this arithmetic intensity and would cost the exactness.
 // * Symmetry. Only tiles with bi >= bj are computed. The block stages its
 //   finished tile in shared memory and writes it twice: as itself and,
 //   read transposed, as the mirrored tile, so both stores run along rows
 //   (coalesced, 16 bytes a thread where cap allows). Diagonal tiles write
 //   every entry from their lower triangle. K == K^T therefore holds bit for
 //   bit by construction.
-// * The backward recomputes corr from the scaled panels in the same tile
-//   loop (K is not kept), weights each entry by G_ij + G_ji (G_ji staged
-//   through shared memory, so G need not be symmetric), then loops over the
-//   dimensions again for sum W (xs_i - xs_j)^2. Block partials go to a
-//   scratch buffer that a second kernel sums in a fixed order: no atomics,
-//   so two launches give bit-identical gradients.
-// * The coordinate gradient rides the same dimension loop (a template flag,
-//   so the hyperparameter-only kernel is compiled without it). Every entry
-//   (i, j) of a tile adds w (xs_i - xs_j) to row i and w (xs_j - xs_i) to
-//   row j: a tile pair holds G_ij + G_ji off the diagonal and G_ij on it,
-//   so either way row i collects sum_j W_ij (xs_i - xs_j). A block writes
-//   its tile's row sums (a shuffle over the 16 threads of a row) and column
-//   sums (a shuffle over the warp's two rows, then 8 warps through shared
-//   memory) as partials: lanes * pairs * 2 * 64 * d doubles. A third kernel
-//   folds the T partials of each row (tile pairs (t, 0..t) as rows,
-//   (t..T-1, t) as columns) in a fixed order: no atomics, bit-identical
-//   launches, and pad rows exactly 0 (their w is 0).
-//   Why partials and not blocks that own a row tile and walk every column
-//   tile (no scratch): that layout does every distinct pair twice and
-//   launches lanes * T blocks, 48 at the planck-like warp fit's cap 384 with
-//   8 lanes on a card of 132 SMs, where the pair layout launches 168 and the
-//   scratch stays at 1 MB there (26 MB at cap 1280, d=30, 4 lanes).
+// * The hyperparameter backward recomputes corr from the scaled panels in
+//   the same tile loop (K is not kept), weights each entry by G_ij + G_ji
+//   (G_ji staged through shared memory, so G need not be symmetric), then
+//   loops over the dimensions again for sum W (xs_i - xs_j)^2. Block
+//   partials go to a scratch buffer that a second kernel sums in a fixed
+//   order: no atomics, so two launches give bit-identical gradients.
+//
+// Design of the coordinate backward (gram_masked_bwd_x), one launch a call.
+// * What it must sum. Row i of lane r needs sum_j W_ij (xs_ik - xs_jk) over
+//   all j, W symmetric, for every dimension k, and the lengthscale sums
+//   sum_ij W_ij (xs_ik - xs_jk)^2; a tile pair (I, J) feeds rows I and rows
+//   J. Summing w (xs_i - xs_j) into row and column accumulators per
+//   dimension costs a cross-thread reduction and a barrier per dimension
+//   (the design this kernel replaced). Here the row part is a product
+//   instead: sum_{j in J} W_ij (xs_ik - xs_jk) = xs_ik r_i - (W xs_J)_ik
+//   with r_i = sum_{j in J} W_ij, and the column part is the same with W^T.
+//   Both products run on the FP64 tensor cores (mma.sync m8n8k4: f64
+//   products and sums), each warp owning whole 8-row output tiles of one
+//   side, so no output is shared between threads and no dimension needs a
+//   barrier; r comes out of the same product as one more column, of ones.
+//   The expansion costs at most |xs| / |xs_i - xs_j| of the terms' digits;
+//   chip_smoke.py phase 2b holds dL/dx to 1e-10 of sum_j |W_ij (x_ik -
+//   x_jk)| / l^2 over its grid (lengthscales down to 0.05 on the unit cube
+//   included) and prints the largest ratio. The distances and the
+//   lengthscale sums stay exact differences (vector FP64); the lengthscale
+//   sums of eight dimensions at a time are reduced over the warp by one
+//   reduce-scatter (9 shuffles where a warp sum each takes 40).
+// * Shared memory. G_ij comes straight into registers and G_ji through
+//   shared memory by cp.async, both in flight while the distances run. W
+//   (TILE x TILE) and the two panels (dimension-major, a ones row after the
+//   last chunk's dimensions) take 79 KB at TILE 64, above the 48 KB a block
+//   gets by default, so the launcher opts in with cudaFuncSetAttribute (up
+//   to 227 KB a block on the H100); two blocks fit an SM (three at TILE
+//   32). W's and the panels' pitch is TILE + 4, 4 (mod 16) doubles, so the
+//   32 addresses of every A and B fragment load (row-major W, its
+//   transpose, the panels) fall on 16 distinct 8-byte bank pairs, two each.
+// * Folding without floating-point atomics. Each tile pair writes the
+//   contribution of its rows I (and, off the diagonal, of its rows J) to
+//   scratch, and its lengthscale and amplitude partial. Row tile t's T
+//   contributions have a fixed order (pos = the pair's other tile: pairs
+//   (t, 0..t) as rows, then (t+1..T-1, t) as columns) and are folded in
+//   runs of fold_run(T) (all T up to 8, else ceil(sqrt(T))): an integer
+//   ticket per (lane, tile, run) counts the run's contributions, and the
+//   block that draws its last ticket sums the run in order (into dL/dx, or
+//   into a run sum); with several runs a ticket per (lane, tile) hands the
+//   block that completes the last run the sum of the run sums, in order. A
+//   ticket per lane hands the block that completes the lane's last pair
+//   the sum of its pairs' lengthscale and amplitude partials, in pair
+//   order. Every sum has one order whichever block performs it, so two
+//   launches are bit-identical. Runs keep the folds short (at cap 1280
+//   with T = 20, a block reads 5 slabs, not 20) and spread them over the
+//   run; a fold stages its slabs in shared memory by cp.async. A ticket is
+//   an atomic add with release and acquire semantics, drawn by one thread
+//   after a barrier (the pattern of a grid barrier). The block that draws
+//   a counter's last ticket resets it, so the ticket buffer (zeroed once
+//   when it is allocated) is ready for the next call without a memset.
+//   Two calls that share a ticket buffer must not run concurrently: the
+//   caller (ops/kernels.py) keeps one buffer per device and stream, and
+//   the calls on one stream run one after another.
+// * Column-major pair order. blockIdx.x walks the lower triangle of tile
+//   pairs column by column, so a row tile's contributions, and so its runs,
+//   complete in order as the columns do.
+// * Diagonal tile pairs symmetrize G as well (w = G_ij + G_ji over the whole
+//   tile) and so need only the row-side product; their hyperparameter
+//   partials are halved, an exact scaling.
+// * The tile edge (32 or 64) comes from the shape (ops/kernels.py
+//   backward_x_tile): 64-row tiles where lanes x tile pairs give every SM
+//   a block, else 32 (the warp fit's cap 256 with 8 lanes: 36 pairs x 8
+//   lanes = 288 blocks, three an SM, where 64-row tiles give 80).
 //
 // What bounds it: at cap 1024, d=8, f64 the forward stores 8.4 MB (2.5 us
 // at 3.35 TB/s) and does about (3d + 20) f64 operations on each of the
@@ -84,7 +131,11 @@
 // reads G (8 bytes per entry and lane) and needs about (5d + 25) operations
 // per distinct entry (the squared difference and its sum, then one FMA for
 // the gradient sum; this kernel recomputes the difference, one more): at
-// d=30 the arithmetic.
+// d=30 the arithmetic. The coordinate backward adds two products, 4 flops
+// per distinct entry and dimension, which run on the tensor cores: at the
+// warp fit's shape (cap 256, d=6, 8 lanes) it is bound by reading G
+// (4.2 MB, 1.3 us), at d=30 by the vector FP64 distance and lengthscale
+// sums.
 //
 // ls and amp are read through device pointers, so the caller never
 // synchronises to pass them; noise is a host scalar.
@@ -320,22 +371,17 @@ __device__ __forceinline__ double warp_sum(double v) {
 
 // Block partials of the backward: part[(lane * (d + 1) + c) * npairs + p],
 // c < d the lengthscale sums (before the 1/l factor), c = d the amplitude.
-// With DX, also the coordinate partials of the tile's rows (side 0) and
-// columns (side 1): dxpart[(((lane * npairs + p) * 2 + side) * d + k) * 64
-// + r], sum_j w (xs_rk - xs_jk) before the -1/l factor.
-template <int KIND, bool DX>
+template <int KIND>
 __global__ void __launch_bounds__(kThreads)
 gram_masked_bwd_partials(const double* __restrict__ x,
                          const double* __restrict__ mask,
                          const double* __restrict__ ls,
                          const double* __restrict__ amp,
                          const double* __restrict__ g,
-                         double* __restrict__ part,
-                         double* __restrict__ dxpart, int cap, int d,
+                         double* __restrict__ part, int cap, int d,
                          int npairs, size_t x_stride) {
   __shared__ Smem<double> sm;
   __shared__ double red[kWarps][kChunk];
-  __shared__ double red_col[DX ? kWarps : 1][DX ? kTile : 1];
   const int lane = blockIdx.y;
   const int p = blockIdx.x;
   int bi, bj;
@@ -347,9 +393,6 @@ gram_masked_bwd_partials(const double* __restrict__ x,
   const double* lsl = ls + static_cast<size_t>(lane) * d;
   const double* xl = x + lane * x_stride;
   double* pl = part + static_cast<size_t>(lane) * (d + 1) * npairs + p;
-  double* dxl = DX ? dxpart + (static_cast<size_t>(lane) * npairs + p) * 2 *
-                             d * kTile
-                   : nullptr;
 
   // w = G_ij (+ G_ji off the diagonal tiles), 0 outside the matrix
   double w[kMicro][kMicro];
@@ -417,51 +460,16 @@ gram_masked_bwd_partials(const double* __restrict__ x,
 #pragma unroll
       for (int b = 0; b < kMicro; ++b) cj[b] = sm.panel.col[k][tx + kEdge * b];
       double s = 0.0;
-      double rs[kMicro], cs[kMicro];
-#pragma unroll
-      for (int a = 0; a < kMicro; ++a) rs[a] = cs[a] = 0.0;
 #pragma unroll
       for (int a = 0; a < kMicro; ++a) {
 #pragma unroll
         for (int b = 0; b < kMicro; ++b) {
           const double diff = ri[a] - cj[b];
           s = fma(w[a][b], diff * diff, s);
-          if (DX) {
-            const double wd = w[a][b] * diff;
-            rs[a] += wd;
-            cs[b] -= wd;
-          }
         }
       }
       s = warp_sum(s);
       if (lane_id == 0) red[warp][k] = s;
-      if (DX) {
-        // rows: the 16 threads of a row are one half-warp (tx = lane % 16)
-#pragma unroll
-        for (int a = 0; a < kMicro; ++a) {
-#pragma unroll
-          for (int off = 8; off > 0; off >>= 1)
-            rs[a] += __shfl_xor_sync(0xffffffffu, rs[a], off);
-        }
-        double* dk = dxl + static_cast<size_t>(k0 + k) * kTile;
-        if (tx == 0) {
-#pragma unroll
-          for (int a = 0; a < kMicro; ++a) dk[ty + kEdge * a] = rs[a];
-        }
-        // columns: the warp's two rows by a shuffle, then the 8 warps
-#pragma unroll
-        for (int b = 0; b < kMicro; ++b) {
-          cs[b] += __shfl_xor_sync(0xffffffffu, cs[b], 16);
-          if (lane_id < kEdge) red_col[warp][tx + kEdge * b] = cs[b];
-        }
-        __syncthreads();
-        if (threadIdx.x < kTile) {
-          double v = 0.0;
-          for (int wp = 0; wp < kWarps; ++wp) v += red_col[wp][threadIdx.x];
-          dk[static_cast<size_t>(d) * kTile + threadIdx.x] = v;
-        }
-        __syncthreads();
-      }
     }
     __syncthreads();
     if (threadIdx.x < kc) {
@@ -510,34 +518,644 @@ gram_masked_bwd_reduce(const double* __restrict__ part,
   }
 }
 
-// dL/dx of the rows of tile blockIdx.x in lane blockIdx.y: the row
-// partials of tile pairs (t, 0..t), then the column partials of
-// (t..T-1, t), in that fixed order, times -1/l. grad_x is (lanes, cap, d).
-__global__ void __launch_bounds__(kThreads)
-gram_masked_bwd_reduce_dx(const double* __restrict__ dxpart,
-                          const double* __restrict__ ls,
-                          double* __restrict__ grad_x, int cap, int d,
-                          int npairs) {
-  const int t = blockIdx.x, lane = blockIdx.y;
-  const int n_t = num_tiles(cap);
-  const double* base = dxpart + static_cast<size_t>(lane) * npairs * 2 * d *
-                                    kTile;
-  for (int idx = threadIdx.x; idx < kTile * d; idx += kThreads) {
-    const int k = idx / kTile, r = idx - k * kTile;
-    const int i = t * kTile + r;
-    if (i >= cap) continue;
-    double v = 0.0;
-    for (int bj = 0; bj <= t; ++bj) {
-      const int p = t * (t + 1) / 2 + bj;
-      v += base[(static_cast<size_t>(p) * 2 * d + k) * kTile + r];
-    }
-    for (int bi = t; bi < n_t; ++bi) {
-      const int p = bi * (bi + 1) / 2 + t;
-      v += base[((static_cast<size_t>(p) * 2 + 1) * d + k) * kTile + r];
-    }
-    const size_t at = static_cast<size_t>(lane) * d + k;
-    grad_x[(static_cast<size_t>(lane) * cap + i) * d + k] = -v / ls[at];
+// ------------------------------------------------------------------------
+// The coordinate backward: one launch, deterministic folds (see the top).
+
+constexpr int kPanelRows = kChunk + 8;  // a chunk, the ones row, mma padding
+
+template <int TILE>
+struct BwdX {
+  static constexpr int kMicro = TILE / kEdge;  // micro-tile edge a thread
+  static constexpr int kPitch = TILE + 4;      // 4 (mod 16) doubles
+  static constexpr int kStage = TILE + 1;      // G^T staging pitch
+  static constexpr int kMTiles = TILE / 8;     // 8-row mma tiles a side
+  // a warp's mma tasks: two 8-row tiles of one side at TILE 64, one at 32
+  static constexpr int kTasks = 2 * kMTiles / kWarps;
+  static constexpr int kSmem =  // dynamic shared bytes: wt, panels, red
+      (TILE * kPitch + 2 * kPanelRows * kPitch + kWarps * kChunk) *
+      static_cast<int>(sizeof(double));
+  static_assert(TILE == 32 || TILE == 64, "tile edge 32 or 64");
+  static_assert(kPitch % 16 == 4, "conflict-free mma fragments");
+};
+
+// Tile pair p -> (bi, bj), bi >= bj, column-major over the lower triangle
+// of t_n x t_n tiles; pair_index is its inverse.
+__device__ __forceinline__ void tile_pair_colmajor(int p, int t_n, int* bi,
+                                                   int* bj) {
+  int c = 0;
+  while (p >= t_n - c) {
+    p -= t_n - c;
+    ++c;
   }
+  *bj = c;
+  *bi = c + p;
+}
+
+__host__ __device__ __forceinline__ int pair_index(int bi, int bj, int t_n) {
+  return bj * t_n - bj * (bj - 1) / 2 + (bi - bj);
+}
+
+// Row tile t's T contributions, in their fixed order, are indexed by the
+// other tile of their pair, pos = 0..T-1: pair (t, pos) side 0 for pos <= t,
+// pair (pos, t) side 1 after. They are folded in runs of fold_run(T): each
+// run by the block that completes it, then (with more than one run) the
+// run sums by the block that completes the last run.
+__host__ __device__ __forceinline__ int fold_run(int t_n) {
+  if (t_n <= 8) return t_n;
+  int g = 1;
+  while (g * g < t_n) ++g;
+  return g;
+}
+
+__host__ __device__ __forceinline__ int fold_runs(int t_n) {
+  return (t_n + fold_run(t_n) - 1) / fold_run(t_n);
+}
+
+// D (8x8) += A (8x4, row-major) B (4x8, column-major) on the FP64 tensor
+// cores. Lane l holds A[l / 4][l % 4], B[l % 4][l / 4] and
+// D[l / 4][2 (l % 4) + {0, 1}].
+__device__ __forceinline__ void mma_f64(double (&c)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}
+
+// Draw v tickets at p: an atomic add with release and acquire semantics at
+// the GPU's scope. Called by one thread after a barrier, it publishes the
+// whole block's earlier writes, and the ones it observed become visible to
+// the block after the next barrier (the pattern of a grid barrier; readers
+// bypass L1: ld.cg, cp.async.cg).
+__device__ __forceinline__ unsigned draw_ticket(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// The warp's sums of v[0..7]: lane l returns that of v[(l / 4) % 8].
+__device__ __forceinline__ double warp_sum8(const double (&v)[8]) {
+  const int l = threadIdx.x % 32;
+  double a[4], b[2];
+  const bool h4 = l & 16, h3 = l & 8, h2 = l & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double send = h4 ? v[i] : v[4 + i];
+    a[i] = (h4 ? v[4 + i] : v[i]) + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const double send = h3 ? a[i] : a[2 + i];
+    b[i] = (h3 ? a[2 + i] : a[i]) + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  double c = (h2 ? b[1] : b[0]) +
+             __shfl_xor_sync(0xffffffffu, h2 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(0xffffffffu, c, 2);
+  c += __shfl_xor_sync(0xffffffffu, c, 1);
+  return c;
+}
+
+// 8 bytes global -> shared without registers (zeros where !valid).
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Stage dimensions [k0, k0 + kc) of the scaled row panel (rows i0..) and
+// column panel (rows j0..), dimension-major, rows past cap 0; with `ones`,
+// row kc is all ones; rows up to `rows` are 0.
+template <int TILE>
+__device__ __forceinline__ void load_panels_x(double* rowp, double* colp,
+                                              const double* x,
+                                              const double* ls, int i0,
+                                              int j0, int cap, int d, int k0,
+                                              int kc, bool ones, int rows) {
+  constexpr int P = BwdX<TILE>::kPitch;
+  for (int idx = threadIdx.x; idx < TILE * rows; idx += kThreads) {
+    const int r = idx / rows;
+    const int k = idx - r * rows;
+    double vr, vc;
+    if (k < kc) {
+      const double l = ls[k0 + k];
+      const int i = i0 + r, j = j0 + r;
+      vr = i < cap ? x[static_cast<size_t>(i) * d + k0 + k] / l : 0.0;
+      vc = j < cap ? x[static_cast<size_t>(j) * d + k0 + k] / l : 0.0;
+    } else {
+      vr = vc = (ones && k == kc) ? 1.0 : 0.0;
+    }
+    rowp[k * P + r] = vr;
+    colp[k * P + r] = vc;
+  }
+}
+
+// One chunk's products for the warp's tasks. Task q (side q / (TILE / 8),
+// 8-row tile q % (TILE / 8)) is side 0: rows I, (W xs_J)_ik, or side 1:
+// rows J, (W^T xs_I)_jk; a warp owns tasks kTasks * warp .. (one side, so
+// its tasks share the B fragments) below n_tasks. nt <= NT 8-column tiles
+// (in the last chunk column kc multiplies the ones row: r, kept in rsum);
+// each output tile keeps SPLIT accumulators over alternate k-steps, summed
+// in a fixed order, so that with one column tile more independent mma
+// chains are in flight. Writes each task row's contribution
+// xs_ik r_i - (W xs)_ik to out + side * slab + row * d.
+template <int TILE, int NT, int SPLIT>
+__device__ __forceinline__ void chunk_products(
+    const double* wt, const double* rowp, const double* colp, int n_tasks,
+    int nt, int kc, bool ones, double* out, size_t slab, int d,
+    double (&rsum)[BwdX<TILE>::kTasks]) {
+  constexpr int P = BwdX<TILE>::kPitch, MT = BwdX<TILE>::kMTiles;
+  constexpr int Q = BwdX<TILE>::kTasks;
+  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
+  const int gq = lid >> 2, tq = lid & 3;
+  const int q0 = warp * Q;
+  if (q0 >= n_tasks) return;  // whole warps: the diagonal's idle half
+  const int side = q0 / MT;
+  const double* bp = side ? rowp : colp;  // B: the other side's panel
+  bool on[Q];
+  int m[Q];
+#pragma unroll
+  for (int s = 0; s < Q; ++s) {
+    on[s] = q0 + s < n_tasks;
+    m[s] = (q0 + s) % MT;
+  }
+  double acc[Q][NT][SPLIT][2];
+#pragma unroll
+  for (int s = 0; s < Q; ++s)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int h = 0; h < SPLIT; ++h) acc[s][n][h][0] = acc[s][n][h][1] = 0.0;
+#pragma unroll 2
+  for (int s4 = 0; s4 < TILE / 4; s4 += SPLIT) {
+#pragma unroll
+    for (int h = 0; h < SPLIT; ++h) {
+      const int k4 = 4 * (s4 + h) + tq;
+      double b[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        b[n] = n < nt ? bp[(8 * n + gq) * P + k4] : 0.0;
+#pragma unroll
+      for (int s = 0; s < Q; ++s) {
+        if (!on[s]) continue;
+        const double a = side ? wt[k4 * P + 8 * m[s] + gq]
+                              : wt[(8 * m[s] + gq) * P + k4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          if (n < nt) mma_f64(acc[s][n][h], a, b[n]);
+      }
+    }
+  }
+  const double* own = side ? colp : rowp;  // the rows' own panel
+#pragma unroll
+  for (int s = 0; s < Q; ++s) {
+    if (!on[s]) continue;
+    double res[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        res[n][e] = acc[s][n][0][e];
+#pragma unroll
+        for (int h = 1; h < SPLIT; ++h) res[n][e] += acc[s][n][h][e];
+      }
+    // r of row 8m + gq is column kc: element kc % 2 of tile kc / 8 on the
+    // quad's lane (kc % 8) / 2
+    if (ones) {
+      double rv = 0.0;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        if (n == kc / 8) rv = (kc & 1) ? res[n][1] : res[n][0];
+      rsum[s] = __shfl_sync(0xffffffffu, rv, (lid & ~3) | ((kc % 8) / 2));
+    }
+    const int row = 8 * m[s] + gq;
+    double* o = out + side * slab + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * tq + e;
+        if (col < kc) o[col] = fma(own[col * P + row], rsum[s], -res[n][e]);
+      }
+  }
+}
+
+// Folds read other blocks' partials from L2 or memory, so their time is
+// that latency: fold_sum keeps kFoldBatch loads in flight before it sums
+// them.
+constexpr int kFoldBatch = 16;
+
+// sum_{c < n} *at(c), in order of c.
+template <typename At>
+__device__ __forceinline__ double fold_sum(At at, int n) {
+  double v = 0.0;
+  for (int c0 = 0; c0 < n; c0 += kFoldBatch) {
+    double buf[kFoldBatch];
+#pragma unroll
+    for (int u = 0; u < kFoldBatch; ++u)
+      buf[u] = c0 + u < n ? __ldcg(at(c0 + u)) : 0.0;
+#pragma unroll
+    for (int u = 0; u < kFoldBatch; ++u) v += buf[u];
+  }
+  return v;
+}
+
+// n_comp sums, component i the terms *at(i, c) for c < count(i) in order;
+// kFoldGroup threads share a component, each summing a contiguous run of
+// its terms, then the runs are added in order (through buf, kThreads
+// doubles of shared memory): a fixed order for each count. The whole block
+// calls it.
+constexpr int kFoldGroup = 8;
+
+template <typename Count, typename At, typename Store>
+__device__ __forceinline__ void block_fold(int n_comp, double* buf,
+                                           Count count, At at, Store store) {
+  const int grp = threadIdx.x % kFoldGroup;
+  for (int c0 = 0; c0 < n_comp; c0 += kThreads / kFoldGroup) {
+    const int comp = c0 + threadIdx.x / kFoldGroup;
+    double v = 0.0;
+    if (comp < n_comp) {
+      const int n = count(comp);
+      const int per = (n + kFoldGroup - 1) / kFoldGroup;
+      const int lo = min(n, grp * per), hi = min(n, lo + per);
+      v = fold_sum([&](int c) { return at(comp, lo + c); }, hi - lo);
+    }
+    buf[threadIdx.x] = v;
+    __syncthreads();
+    if (grp == 0 && comp < n_comp) {
+      double sum = 0.0;
+      for (int g = 0; g < kFoldGroup; ++g) sum += buf[threadIdx.x + g];
+      store(comp, sum);
+    }
+    __syncthreads();
+  }
+}
+
+// 16 bytes global -> shared without registers.
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// n_jobs slab sums: element e < elems(j) of job j is the sum of
+// src(j, c)[e] over c < count(j), in order of c; store(j, e, v). The
+// slabs (of at least elems rounded up to even, 16-byte aligned) come into
+// `stage` (n_stage doubles of shared memory) by cp.async, as many at once
+// as fit, so the copies are in flight together; the sums then read shared
+// memory. The whole block calls it.
+template <typename Elems, typename Count, typename Src, typename Store>
+__device__ __forceinline__ void fold_slabs(int n_jobs, double* stage,
+                                           int n_stage, Elems elems,
+                                           Count count, Src src,
+                                           Store store) {
+  for (int j = 0; j < n_jobs; ++j) {
+    const int n = count(j), ne = elems(j);
+    const int ne2 = (ne + 1) & ~1;
+    const int piece = (n_stage / n) & ~1;  // elements a copy round, even
+    for (int e0 = 0; e0 < ne2; e0 += piece) {
+      const int m = min(piece, ne2 - e0), h = m / 2;
+      for (int idx = threadIdx.x; idx < n * h; idx += kThreads) {
+        const int c = idx / h, q = idx - c * h;
+        cp_async16(stage + c * m + 2 * q, src(j, c) + e0 + 2 * q);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      for (int e = threadIdx.x; e < m && e0 + e < ne; e += kThreads) {
+        double v = 0.0;
+        for (int c = 0; c < n; ++c) v += stage[c * m + e];
+        store(j, e0 + e, v);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Scratch, per lane: part holds npairs x (d + 1) doubles (the tile pairs'
+// hyperparameter partials); dxpart npairs x 2 slabs of TILE x d doubles
+// (each pair's contribution to the rows of tile bi, side 0, and of tile
+// bj, side 1), then T x fold_runs(T) slabs (the run sums); tickets
+// T x fold_runs(T) + T + 1 unsigned (a run's count of contributions done,
+// a row tile's count of runs done, the lane's count of pairs done), zero
+// between calls.
+template <int KIND, int TILE>
+__global__ void __launch_bounds__(kThreads, TILE == 32 ? 3 : 2)
+gram_masked_bwd_x(const double* __restrict__ x,
+                  const double* __restrict__ mask,
+                  const double* __restrict__ ls,
+                  const double* __restrict__ amp,
+                  const double* __restrict__ g, double* __restrict__ part,
+                  double* __restrict__ dxpart, unsigned* __restrict__ tickets,
+                  double* __restrict__ grad_ls, double* __restrict__ grad_amp,
+                  double* __restrict__ grad_x, int cap, int d,
+                  size_t x_stride) {
+  using C = BwdX<TILE>;
+  constexpr int M = C::kMicro, P = C::kPitch, S = C::kStage;
+  extern __shared__ double smem[];
+  double* wt = smem;                     // G^T staging, then W (TILE x P)
+  double* rowp = wt + TILE * P;          // kPanelRows x P
+  double* colp = rowp + kPanelRows * P;  // kPanelRows x P
+  double* red = colp + kPanelRows * P;   // kWarps x kChunk
+  __shared__ double amp_red[kWarps];
+  __shared__ int jobs[2][2], lane_last;
+
+  const int t_n = (cap + TILE - 1) / TILE;
+  const int npairs = t_n * (t_n + 1) / 2;
+  const int lane = blockIdx.y, p = blockIdx.x;
+  int bi, bj;
+  tile_pair_colmajor(p, t_n, &bi, &bj);
+  const bool diag = bi == bj;
+  const int i0 = bi * TILE, j0 = bj * TILE;
+  const int tx = threadIdx.x % kEdge, ty = threadIdx.x / kEdge;
+  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
+  const double* gl = g + static_cast<size_t>(lane) * cap * cap;
+  const double* lsl = ls + static_cast<size_t>(lane) * d;
+  const double* xl = x + lane * x_stride;
+  const size_t slab = static_cast<size_t>(TILE) * d;  // one side's rows
+  const int last = (d - 1) / kChunk;                  // the last chunk
+
+  // w = G_ij + G_ji: direct into registers, transposed through shared
+  // memory by cp.async, both in flight through the distances
+  double w[M][M];
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    const int i = i0 + ty + kEdge * a;
+#pragma unroll
+    for (int b = 0; b < M; ++b) {
+      const int j = j0 + tx + kEdge * b;
+      w[a][b] = (i < cap && j < cap) ? gl[static_cast<size_t>(i) * cap + j]
+                                     : 0.0;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < TILE * TILE / kThreads; ++u) {
+    const int idx = threadIdx.x + u * kThreads;
+    const int r = idx / TILE, c = idx % TILE;
+    const int jj = j0 + r, ii = i0 + c;
+    const bool in = jj < cap && ii < cap;
+    cp_async8(wt + r * S + c, in ? gl + static_cast<size_t>(jj) * cap + ii : gl,
+              in);
+  }
+
+  // squared scaled distances over every chunk; the last chunk, with its
+  // ones row, stays staged
+  double acc[M][M];
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+#pragma unroll
+    for (int b = 0; b < M; ++b) acc[a][b] = 0.0;
+  for (int c = 0; c <= last; ++c) {
+    const int k0 = c * kChunk, kc = min(kChunk, d - k0);
+    if (c > 0) __syncthreads();
+    load_panels_x<TILE>(rowp, colp, xl, lsl, i0, j0, cap, d, k0, kc,
+                        c == last, c == last ? (kc + 8) & ~7 : kc);
+    __syncthreads();
+    for (int k = 0; k < kc; ++k) {
+      double ri[M], cj[M];
+#pragma unroll
+      for (int a = 0; a < M; ++a) ri[a] = rowp[k * P + ty + kEdge * a];
+#pragma unroll
+      for (int b = 0; b < M; ++b) cj[b] = colp[k * P + tx + kEdge * b];
+#pragma unroll
+      for (int a = 0; a < M; ++a)
+#pragma unroll
+        for (int b = 0; b < M; ++b) {
+          const double diff = ri[a] - cj[b];
+          acc[a][b] = fma(diff, diff, acc[a][b]);
+        }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // W = (G_ij + G_ji) amp m_i m_j c'_ij into shared memory, and the
+  // amplitude sum
+  const double a_amp = amp[lane];
+  double amp_sum = 0.0;
+  double mj[M];
+#pragma unroll
+  for (int b = 0; b < M; ++b) {
+    const int j = j0 + tx + kEdge * b;
+    mj[b] = j < cap ? mask[j] : 0.0;
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    const int i = i0 + ty + kEdge * a;
+    const double mi = i < cap ? mask[i] : 0.0;
+#pragma unroll
+    for (int b = 0; b < M; ++b) {
+      double dcorr;
+      const double wg = w[a][b] + wt[(tx + kEdge * b) * S + ty + kEdge * a];
+      const double corr = correlation<double, KIND>(acc[a][b], &dcorr);
+      const double gm = wg * (mi * mj[b]);
+      amp_sum = fma(gm, corr, amp_sum);
+      w[a][b] = gm * a_amp * dcorr;
+    }
+  }
+  amp_sum = warp_sum(amp_sum);
+  if (lid == 0) amp_red[warp] = amp_sum;
+  __syncthreads();  // every thread is done with the staging
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+#pragma unroll
+    for (int b = 0; b < M; ++b)
+      wt[(ty + kEdge * a) * P + tx + kEdge * b] = w[a][b];
+
+  // chunk by chunk, the staged last one first: the lengthscale sums by
+  // exact differences (W back from shared memory, so that the products
+  // have the registers), then the two products on the tensor cores
+  const double half = diag ? 0.5 : 1.0;
+  double* pl = part + (static_cast<size_t>(lane) * npairs + p) * (d + 1);
+  double* dxp = dxpart + (static_cast<size_t>(lane) * npairs + p) * 2 * slab;
+  const int n_tasks = (diag ? 1 : 2) * C::kMTiles;
+  double rsum[C::kTasks];  // r of the thread's row in each of its tasks
+  for (int c = last; c >= 0; --c) {
+    const int k0 = c * kChunk, kc = min(kChunk, d - k0);
+    const bool ones = c == last;
+    if (!ones) {
+      __syncthreads();  // the later chunk's products are done with the panels
+      load_panels_x<TILE>(rowp, colp, xl, lsl, i0, j0, cap, d, k0, kc, false,
+                          (kc + 7) & ~7);
+    }
+    __syncthreads();
+    {
+      double wr[M][M];
+#pragma unroll
+      for (int a = 0; a < M; ++a)
+#pragma unroll
+        for (int b = 0; b < M; ++b)
+          wr[a][b] = wt[(ty + kEdge * a) * P + tx + kEdge * b];
+      // eight dimensions at a time, then one reduce-scatter over the warp
+      for (int kg = 0; kg < kc; kg += 8) {
+        double sg[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int k = kg + u;
+          sg[u] = 0.0;
+          if (k >= kc) continue;
+          double ri[M], cj[M];
+#pragma unroll
+          for (int a = 0; a < M; ++a) ri[a] = rowp[k * P + ty + kEdge * a];
+#pragma unroll
+          for (int b = 0; b < M; ++b) cj[b] = colp[k * P + tx + kEdge * b];
+          double sk = 0.0;
+#pragma unroll
+          for (int a = 0; a < M; ++a)
+#pragma unroll
+            for (int b = 0; b < M; ++b) {
+              const double diff = ri[a] - cj[b];
+              sk = fma(wr[a][b], diff * diff, sk);
+            }
+          sg[u] = sk;
+        }
+        const double sk = warp_sum8(sg);
+        const int k = kg + (lid / 4) % 8;
+        if (lid % 4 == 0 && k < kc) red[warp * kChunk + k] = sk;
+      }
+    }
+    // three instances: one column tile (a last chunk of up to 7
+    // dimensions, as at the warp fit's d=6) with four accumulators each;
+    // four (a full chunk, or a last one of 24-31 dimensions, as at d=30);
+    // else up to 5, the unused ones skipped (the 5-tile instance is 4 %
+    // slower than the 4-tile one at d=30: tools/torch_port_tile_sweep.py
+    // --backward-x)
+    const int ntiles = (kc + (ones ? 1 : 0) + 7) / 8;
+    double* out = dxp + k0;
+    if (ntiles == 1) {
+      chunk_products<TILE, 1, 4>(wt, rowp, colp, n_tasks, 1, kc, ones, out,
+                                 slab, d, rsum);
+    } else if (ntiles == 4) {
+      chunk_products<TILE, 4, 1>(wt, rowp, colp, n_tasks, 4, kc, ones, out,
+                                 slab, d, rsum);
+    } else {
+      chunk_products<TILE, 5, 1>(wt, rowp, colp, n_tasks, ntiles, kc, ones,
+                                 out, slab, d, rsum);
+    }
+    __syncthreads();  // red is complete
+    if (threadIdx.x < kc) {
+      double v = 0.0;
+      for (int wp = 0; wp < kWarps; ++wp) v += red[wp * kChunk + threadIdx.x];
+      pl[k0 + threadIdx.x] = half * v;
+    }
+  }
+  if (threadIdx.x == 0) {
+    double v = 0.0;
+    for (int wp = 0; wp < kWarps; ++wp) v += amp_red[wp];
+    pl[d] = half * v;
+  }
+
+  // Tickets (draw_ticket: each publishes the block's writes and acquires
+  // the other blocks').
+  const int run = fold_run(t_n), runs = fold_runs(t_n);
+  unsigned* tk = tickets + static_cast<size_t>(lane) * (t_n * runs + t_n + 1);
+  unsigned* tk_tile = tk + t_n * runs;
+  unsigned* tk_lane = tk_tile + t_n;
+  double* run_sums =  // after every lane's contributions
+      dxpart + (static_cast<size_t>(gridDim.y) * npairs * 2 +
+                static_cast<size_t>(lane) * t_n * runs) * slab;
+  __syncthreads();
+  // threads 0 and 1: this pair's contributions (tile bi at pos bj, tile bj
+  // at pos bi) to their runs; thread 2: the lane
+  if (threadIdx.x < 3) {
+    if (threadIdx.x == 2) {
+      lane_last =
+          draw_ticket(tk_lane, 1u) == static_cast<unsigned>(npairs - 1);
+      if (lane_last) *tk_lane = 0;
+    } else {
+      const int side = threadIdx.x;
+      const int t = side ? bj : bi, r0 = (side ? bi : bj) / run;
+      bool done = false;
+      if (side == 0 || !diag) {
+        unsigned* tr = tk + t * runs + r0;
+        done = draw_ticket(tr, 1u) ==
+               static_cast<unsigned>(min(run, t_n - r0 * run) - 1);
+        if (done) *tr = 0;  // every ticket of the run is drawn: reset
+      }
+      jobs[side][0] = done ? t : -1;
+      jobs[side][1] = r0;
+    }
+  }
+  __syncthreads();
+  int job_t[2], job_r[2], nj = 0;  // the completed runs
+  for (int j = 0; j < 2; ++j) {
+    if (jobs[j][0] >= 0) {
+      job_t[nj] = jobs[j][0];
+      job_r[nj++] = jobs[j][1];
+    }
+  }
+  if (lane_last) {
+    // the lane's hyperparameter partials, in pair order
+    const int nc = d + 1;
+    const double* pl0 = part + static_cast<size_t>(lane) * npairs * nc;
+    block_fold(
+        nc, red, [&](int) { return npairs; },
+        [&](int comp, int c) { return pl0 + static_cast<size_t>(c) * nc + comp; },
+        [&](int comp, double v) {
+          if (comp < d) {
+            grad_ls[static_cast<size_t>(lane) * d + comp] = v / lsl[comp];
+          } else {
+            grad_amp[lane] = v;
+          }
+        });
+  }
+  if (nj == 0) return;
+  const double* lane_dx = dxpart + static_cast<size_t>(lane) * npairs * 2 * slab;
+  auto tile_elems = [&](int t) { return min(TILE, cap - t * TILE) * d; };
+  auto store_dx = [&](int t, int e, double v) {
+    const int r = e / d, k = e - r * d;
+    grad_x[(static_cast<size_t>(lane) * cap + t * TILE + r) * d + k] =
+        -v / lsl[k];
+  };
+  __syncthreads();  // the lane's fold is done with red
+  // each completed run: its contributions in order, into the run's sum (or,
+  // when the tile has one run, into dL/dx)
+  fold_slabs(
+      nj, smem, C::kSmem / static_cast<int>(sizeof(double)),
+      [&](int j) { return tile_elems(job_t[j]); },
+      [&](int j) { return min(run, t_n - job_r[j] * run); },
+      [&](int j, int c) {
+        const int t = job_t[j], pos = job_r[j] * run + c;
+        const int q = pos <= t ? pair_index(t, pos, t_n)
+                               : pair_index(pos, t, t_n);
+        return lane_dx + (static_cast<size_t>(q) * 2 + (pos <= t ? 0 : 1)) *
+                             slab;
+      },
+      [&](int j, int e, double v) {
+        if (runs == 1) {
+          store_dx(job_t[j], e, v);
+        } else {
+          run_sums[(static_cast<size_t>(job_t[j]) * runs + job_r[j]) * slab +
+                   e] = v;
+        }
+      });
+  if (runs == 1) return;
+  // a tile whose last run this block completed: the run sums, in order
+  __syncthreads();
+  if (threadIdx.x < nj) {
+    const int t = job_t[threadIdx.x];
+    const bool done =
+        draw_ticket(tk_tile + t, 1u) == static_cast<unsigned>(runs - 1);
+    if (done) tk_tile[t] = 0;
+    jobs[threadIdx.x][0] = done ? t : -1;
+  }
+  __syncthreads();
+  int nt = 0;
+  for (int j = 0; j < nj; ++j)
+    if (jobs[j][0] >= 0) job_t[nt++] = jobs[j][0];
+  fold_slabs(
+      nt, smem, C::kSmem / static_cast<int>(sizeof(double)),
+      [&](int j) { return tile_elems(job_t[j]); }, [&](int) { return runs; },
+      [&](int j, int c) {
+        return run_sums + (static_cast<size_t>(job_t[j]) * runs + c) * slab;
+      },
+      [&](int j, int e, double v) { store_dx(job_t[j], e, v); });
 }
 
 int tile_pairs(int cap) {
@@ -568,12 +1186,12 @@ int launch_forward(const T* x, const T* mask, const T* ls, const T* amp,
 
 }  // namespace
 
+// Runs in which the coordinate backward folds a row tile's T contributions.
+extern "C" int bobe_gram_fold_runs(int t_n) { return fold_runs(t_n); }
+
 // Tile pairs of one lane at this capacity: the backward's scratch holds
 // lanes * (d + 1) * bobe_gram_tile_pairs(cap) doubles.
 extern "C" int bobe_gram_tile_pairs(int cap) { return tile_pairs(cap); }
-
-// Output tile edge (the coordinate partials hold this many rows a side).
-extern "C" int bobe_gram_tile() { return kTile; }
 
 // kind: 0 = RBF, 1 = Matern-5/2. x is (cap, d) (x_per_lane = 0) or
 // (lanes, cap, d) (x_per_lane = 1), ls (lanes, d), amp (lanes,), out
@@ -598,12 +1216,10 @@ extern "C" int bobe_gram_masked_f32(const float* x, const float* mask,
 
 namespace {
 
-template <bool DX>
 int launch_backward(const double* x, const double* mask, const double* ls,
                     const double* amp, const double* g, double* part,
-                    double* dxpart, double* grad_ls, double* grad_amp,
-                    double* grad_x, int cap, int d, int lanes, int x_per_lane,
-                    int kind, void* stream) {
+                    double* grad_ls, double* grad_amp, int cap, int d,
+                    int lanes, int x_per_lane, int kind, void* stream) {
   if (cap <= 0 || d <= 0 || lanes <= 0 || lanes > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int npairs = tile_pairs(cap);
@@ -611,11 +1227,11 @@ int launch_backward(const double* x, const double* mask, const double* ls,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(npairs, lanes);
   if (kind == 0) {
-    gram_masked_bwd_partials<0, DX><<<grid, kThreads, 0, s>>>(
-        x, mask, ls, amp, g, part, dxpart, cap, d, npairs, xs);
+    gram_masked_bwd_partials<0><<<grid, kThreads, 0, s>>>(
+        x, mask, ls, amp, g, part, cap, d, npairs, xs);
   } else if (kind == 1) {
-    gram_masked_bwd_partials<1, DX><<<grid, kThreads, 0, s>>>(
-        x, mask, ls, amp, g, part, dxpart, cap, d, npairs, xs);
+    gram_masked_bwd_partials<1><<<grid, kThreads, 0, s>>>(
+        x, mask, ls, amp, g, part, cap, d, npairs, xs);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -623,12 +1239,33 @@ int launch_backward(const double* x, const double* mask, const double* ls,
   if (err != cudaSuccess) return static_cast<int>(err);
   gram_masked_bwd_reduce<<<dim3(d + 1, lanes), kThreads, 0, s>>>(
       part, ls, grad_ls, grad_amp, d, npairs);
-  if (DX) {
-    err = cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND, int TILE>
+int launch_backward_x(const double* x, const double* mask, const double* ls,
+                      const double* amp, const double* g, double* part,
+                      double* dxpart, unsigned* tickets, double* grad_ls,
+                      double* grad_amp, double* grad_x, int cap, int d,
+                      int lanes, size_t xs, cudaStream_t s) {
+  auto kernel = gram_masked_bwd_x<KIND, TILE>;
+  // the opt-in above 48 KB of dynamic shared memory, once per device
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               BwdX<TILE>::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    gram_masked_bwd_reduce_dx<<<dim3(num_tiles(cap), lanes), kThreads, 0,
-                                s>>>(dxpart, ls, grad_x, cap, d, npairs);
+    opted[dev] = true;
   }
+  const int t_n = (cap + TILE - 1) / TILE;
+  kernel<<<dim3(t_n * (t_n + 1) / 2, lanes), kThreads, BwdX<TILE>::kSmem,
+           s>>>(x, mask, ls, amp, g, part, dxpart, tickets, grad_ls, grad_amp,
+                grad_x, cap, d, xs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -641,19 +1278,39 @@ extern "C" int bobe_gram_masked_backward_f64(
     const double* x, const double* mask, const double* ls, const double* amp,
     const double* g, double* part, double* grad_ls, double* grad_amp, int cap,
     int d, int lanes, int x_per_lane, int kind, void* stream) {
-  return launch_backward<false>(x, mask, ls, amp, g, part, nullptr, grad_ls,
-                                grad_amp, nullptr, cap, d, lanes, x_per_lane,
-                                kind, stream);
+  return launch_backward(x, mask, ls, amp, g, part, grad_ls, grad_amp, cap, d,
+                         lanes, x_per_lane, kind, stream);
 }
 
-// The same, and dL/dx into grad_x (lanes, cap, d); dxpart is scratch of
-// lanes * bobe_gram_tile_pairs(cap) * 2 * 64 * d doubles.
+// The same, and dL/dx into grad_x (lanes, cap, d), in one launch with tile
+// edge `tile` (32 or 64; T = ceil(cap / tile) row tiles, T (T + 1) / 2
+// pairs, R = bobe_gram_fold_runs(T)). Scratch: part lanes * pairs * (d + 1)
+// doubles, dxpart lanes * (2 pairs + T R) * tile * d doubles, tickets
+// lanes * (T R + T + 1) unsigned, 0 before the call and 0 again after it.
 extern "C" int bobe_gram_masked_backward_x_f64(
     const double* x, const double* mask, const double* ls, const double* amp,
-    const double* g, double* part, double* dxpart, double* grad_ls,
-    double* grad_amp, double* grad_x, int cap, int d, int lanes,
-    int x_per_lane, int kind, void* stream) {
-  return launch_backward<true>(x, mask, ls, amp, g, part, dxpart, grad_ls,
-                               grad_amp, grad_x, cap, d, lanes, x_per_lane,
-                               kind, stream);
+    const double* g, double* part, double* dxpart, unsigned* tickets,
+    double* grad_ls, double* grad_amp, double* grad_x, int cap, int d,
+    int lanes, int x_per_lane, int kind, int tile, void* stream) {
+  if (cap <= 0 || d <= 0 || lanes <= 0 || lanes > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t xs = x_per_lane ? static_cast<size_t>(cap) * d : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == 0 && tile == 32)
+    return launch_backward_x<0, 32>(x, mask, ls, amp, g, part, dxpart,
+                                    tickets, grad_ls, grad_amp, grad_x, cap,
+                                    d, lanes, xs, s);
+  if (kind == 0 && tile == 64)
+    return launch_backward_x<0, 64>(x, mask, ls, amp, g, part, dxpart,
+                                    tickets, grad_ls, grad_amp, grad_x, cap,
+                                    d, lanes, xs, s);
+  if (kind == 1 && tile == 32)
+    return launch_backward_x<1, 32>(x, mask, ls, amp, g, part, dxpart,
+                                    tickets, grad_ls, grad_amp, grad_x, cap,
+                                    d, lanes, xs, s);
+  if (kind == 1 && tile == 64)
+    return launch_backward_x<1, 64>(x, mask, ls, amp, g, part, dxpart,
+                                    tickets, grad_ls, grad_amp, grad_x, cap,
+                                    d, lanes, xs, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

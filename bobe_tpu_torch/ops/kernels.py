@@ -349,13 +349,12 @@ def build_library(tile: int = TILE) -> ctypes.CDLL:
             ptr]
         lib.bobe_gram_masked_backward_f64.restype = i32
         lib.bobe_gram_masked_backward_x_f64.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-            i32, i32, ptr]
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+            i32, i32, i32, i32, ptr]
         lib.bobe_gram_masked_backward_x_f64.restype = i32
-        lib.bobe_gram_tile_pairs.argtypes = [i32]
-        lib.bobe_gram_tile_pairs.restype = i32
-        lib.bobe_gram_tile.argtypes = []
-        lib.bobe_gram_tile.restype = i32
+        for fn in (lib.bobe_gram_tile_pairs, lib.bobe_gram_fold_runs):
+            fn.argtypes = [i32]
+            fn.restype = i32
         build_info.update(path=str(so), seconds=time.time() - t0,
                           log=log_text)
         _LIBS[tile] = lib
@@ -410,30 +409,47 @@ def launch_forward(name, x, mask, ls, amp, noise, out, tile=TILE):
 
 
 def launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls,
-                    grad_amp, tile=TILE, dx_scratch=None, grad_x=None):
+                    grad_amp, tile=TILE):
     """Launch the backward kernels (block partials into ``scratch``, then
     their fixed-order sum into ``grad_ls``, ``grad_amp``) on the current
-    stream: no checks, no count, no allocation. With ``grad_x`` (lanes,
-    cap, d) and ``dx_scratch`` the coordinate variant, which also writes
-    dL/dx."""
+    stream: no checks, no count, no allocation (the wrapper's body, and what
+    a device-time measurement loops over)."""
     lib = build_library(tile)
     cap, d = x.shape[-2:]
-    per_lane = int(x.dim() == 3)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if grad_x is None:
-            err = lib.bobe_gram_masked_backward_f64(
-                x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
-                grad.data_ptr(), scratch.data_ptr(), grad_ls.data_ptr(),
-                grad_amp.data_ptr(), cap, d, ls.shape[0], per_lane,
-                _KINDS[name], stream)
-        else:
-            err = lib.bobe_gram_masked_backward_x_f64(
-                x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
-                grad.data_ptr(), scratch.data_ptr(), dx_scratch.data_ptr(),
-                grad_ls.data_ptr(), grad_amp.data_ptr(), grad_x.data_ptr(),
-                cap, d, ls.shape[0], per_lane, _KINDS[name], stream)
+        err = lib.bobe_gram_masked_backward_f64(
+            x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
+            grad.data_ptr(), scratch.data_ptr(), grad_ls.data_ptr(),
+            grad_amp.data_ptr(), cap, d, ls.shape[0], int(x.dim() == 3),
+            _KINDS[name], stream)
     _check_launch("gram_masked_backward", err)
+
+
+def launch_backward_x(name, x, mask, ls, amp, grad, part, dxpart, grad_ls,
+                      grad_amp, grad_x, tile=None):
+    """Launch the coordinate backward, one kernel, into ``grad_ls``,
+    ``grad_amp`` and ``grad_x`` (lanes, cap, d) on the current stream, with
+    scratch ``part`` and ``dxpart`` of :func:`backward_x_scratch_sizes` and
+    the stream's ticket buffer: no checks, no count, no allocation past the
+    ticket buffer's first. ``tile`` (32 or 64) defaults to
+    :func:`backward_x_tile`'s choice for the shape; anything else is for
+    measurements."""
+    lib = build_library()
+    cap, d = x.shape[-2:]
+    lanes = ls.shape[0]
+    tile = backward_x_tile(cap, d, lanes) if tile is None else tile
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device)
+        tickets = ticket_buffer(
+            stream, backward_x_scratch_sizes(cap, d, lanes, tile)[2])
+        err = lib.bobe_gram_masked_backward_x_f64(
+            x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
+            grad.data_ptr(), part.data_ptr(), dxpart.data_ptr(),
+            tickets.data_ptr(), grad_ls.data_ptr(), grad_amp.data_ptr(),
+            grad_x.data_ptr(), cap, d, lanes, int(x.dim() == 3),
+            _KINDS[name], int(tile), stream.cuda_stream)
+    _check_launch("gram_masked_backward_x", err)
 
 
 def backward_scratch_size(cap, d, lanes, tile=TILE) -> int:
@@ -441,11 +457,60 @@ def backward_scratch_size(cap, d, lanes, tile=TILE) -> int:
     return lanes * (d + 1) * build_library(tile).bobe_gram_tile_pairs(cap)
 
 
-def backward_dx_scratch_size(cap, d, lanes, tile=TILE) -> int:
-    """float64 entries of the coordinate variant's row/column partials."""
-    lib = build_library(tile)
-    return lanes * lib.bobe_gram_tile_pairs(cap) * 2 * lib.bobe_gram_tile() \
-        * d
+# H100 SXM: streaming multiprocessors the coordinate backward's grid fills
+_SMS = 132
+
+
+def backward_x_tile(cap, d, lanes) -> int:
+    """Tile edge of the coordinate backward at this shape: 64 where its grid
+    of lanes x tile pairs has a block for every SM of the card, else 32,
+    which gives the grid about four times the blocks (cap 256 with 8 lanes:
+    36 x 8 = 288 blocks where 64-row tiles give 80). Depends on the shape
+    alone (``d`` does not change the choice)."""
+    t = -(-cap // 64)
+    return 64 if lanes * t * (t + 1) // 2 >= _SMS else 32
+
+
+def fold_runs(t):
+    """Runs in which the coordinate backward folds each row tile's t
+    contributions (csrc/gram_masked.cu fold_runs): one up to t = 8, else
+    runs of ceil(sqrt(t))."""
+    if t <= 8:
+        return 1
+    run = math.isqrt(t - 1) + 1
+    return -(-t // run)
+
+
+def backward_x_scratch_sizes(cap, d, lanes, tile):
+    """(float64 entries of the coordinate backward's hyperparameter
+    partials, float64 entries of its row contributions and their run sums,
+    its tickets) at tile edge ``tile``: T = ceil(cap / tile) row tiles,
+    T (T + 1) / 2 tile pairs and R = fold_runs(T) runs a lane."""
+    t = -(-cap // tile)
+    pairs = t * (t + 1) // 2
+    runs = fold_runs(t)
+    return (lanes * pairs * (d + 1), lanes * (2 * pairs + t * runs) * tile * d,
+            lanes * (t * runs + t + 1))
+
+
+# One ticket buffer per device and stream, zeroed once when it is
+# allocated; each launch of the coordinate backward leaves its tickets at 0
+# again. Launches on one stream run one after another, so no two launches
+# that share a buffer overlap, whichever streams a caller uses.
+_TICKETS: dict = {}
+
+
+def ticket_buffer(stream, n):
+    """The ticket buffer of ``stream`` (a torch.cuda.Stream), with at least
+    ``n`` int32 entries, all 0 between launches."""
+    key = (stream.device, stream.cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        size = n if buf is None else max(n, 2 * buf.numel())
+        with torch.cuda.stream(stream):
+            buf = _TICKETS[key] = torch.zeros(size, dtype=torch.int32,
+                                              device=stream.device)
+    return buf
 
 
 def _gram_masked_cuda(name, x, mask, ls, amp, noise):
@@ -474,16 +539,17 @@ def _gram_masked_backward_cuda(name, x, mask, ls, amp, grad, need_x):
             f"{what}: grad must be a contiguous ({lanes}, {cap}, {cap}) "
             f"tensor like x, got {tuple(grad.shape)} {grad.dtype}")
     new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
-    scratch = new(backward_scratch_size(cap, d, lanes))
     grad_ls, grad_amp = new(lanes, d), new(lanes)
     if not need_x:
+        scratch = new(backward_scratch_size(cap, d, lanes))
         launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls,
                         grad_amp)
         gram_masked_backward.launches += 1
         return grad_ls, grad_amp
-    dx_scratch = new(backward_dx_scratch_size(cap, d, lanes))
+    n_part, n_dx, _ = backward_x_scratch_sizes(
+        cap, d, lanes, backward_x_tile(cap, d, lanes))
     grad_x = new(lanes, cap, d)
-    launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls, grad_amp,
-                    dx_scratch=dx_scratch, grad_x=grad_x)
+    launch_backward_x(name, x, mask, ls, amp, grad, new(n_part), new(n_dx),
+                      grad_ls, grad_amp, grad_x)
     gram_masked_backward_x.launches += 1
     return grad_ls, grad_amp, grad_x

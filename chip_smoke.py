@@ -17,14 +17,17 @@ non-zero):
 2b. hold the Gram backward kernel against its plain version (rbf/matern,
    float64, four capacities, four dimensions, one and four lanes, a random
    cotangent), and two of its launches against each other bit for bit; then
-   its coordinate variant (dL/dx) the same way, with d in {1, 6, 30, 40},
-   shared and per-lane x, the warp fit's shape (cap 256, d=6, 8 lanes),
-   and pad rows exactly 0;
+   its coordinate variant (dL/dx, one launch) the same way, with d in
+   {1, 6, 30, 40}, shared and per-lane x, the warp fit's shape (cap 256,
+   d=6, 8 lanes), 8 lanes at caps on both sides of the shape's switch from
+   32- to 64-row tiles (200, 300, 320, 330), pad rows exactly 0, and its
+   tickets back at 0 after every call;
 3. time the kernels on the card: device time from a CUDA graph of
    back-to-back launches into preallocated outputs, the wrapper's wall per
    call, the plain versions (CUDA events, median of 25) and the bound; the
    per-lane forward and the dL/dx backward at the warp fit's shape (cap
-   256, d=6, 8 lanes), at cap 384 and at d=30 (cap 1280, 4 lanes);
+   256, d=6, 8 lanes), at cap 384 and at d=30 (cap 1280, 4 lanes), with
+   the dL/dx backward's device launches per wrapper call (torch.profiler);
 4. run the slice end to end: BOBE on the banana toy, WIPStd acquisition with
    an NS-mode MC pool, on the card;
 5. the slice's operations at N=1024, d=8 (the bench.py cell): a GP fit, a
@@ -33,6 +36,11 @@ non-zero):
 6. a GP fit above the per-dimension budget: examples/gaussian_30d.py's
    target at N=1200 (capacity 1280, d=30), whose every objective runs the
    forward and backward kernels, checked against the JAX package's neg_mll;
+6b. the input warp on phase 6's data (d=30, cap 1280, 91 hyperparameters):
+   neg_mll and its gradient over the four restart lanes through the
+   per-lane forward and the dL/dx backward on the card against the plain
+   versions on the CPU (rtol 1e-9, GP noise 1e-6), then a 4-restart warp
+   fit (maxiter 20) that ends finite, with the two kernels' share of it;
 7. phase 4's banana run with BOBE's own default MC pool (ensemble HMC), to
    convergence;
 8. the MCMC MC pools at N=1024, d=8 (phase 5's GP with the JAX package's
@@ -52,11 +60,11 @@ non-zero):
    of the plain GP of the same rows, and a cold gated ensemble-HMC pool
    against the JAX package's moments;
 11. examples/planck_like_synthetic.py's run at its own settings
-   (use_clf=True, do_final_ns=True) with min_evals above max_evals=120, so
-   that it ends on the final fit, the dynamic NS and its top-up (cut to 3
-   merged runs in all, from 16); checked for its termination, a finite
-   logZ, an engaged classifier and final samples in the box, with its
-   timing ledger;
+   (use_clf=True, do_final_ns=True) with min_evals above max_evals=80, so
+   that it ends on the final fit, the dynamic NS and its static top-up (cut
+   to 3 merged runs in all, from up to 16); checked for its termination,
+   that final pass, a finite logZ, an engaged classifier and final samples
+   in the box, with its timing ledger;
 12. the input warp on phase 10's gated planck-like state: neg_mll and its
    gradient at the JAX package's fitted warp and an 8-restart warp fit
    (every objective through the per-lane forward and the dL/dx backward),
@@ -81,7 +89,7 @@ non-zero):
    Sobol and 8 Cobaya points, the SVM-gated GP, the multiprocess pool) and
    run, through a stand-in cobaya package written to a temporary directory
    (the recorded LCDM-lite surface over make_planck_like's log-likelihood),
-   cut to 72 evaluations and ended on the final NS: the Cobaya draws equal
+   cut to 64 evaluations and ended on the final NS: the Cobaya draws equal
    _mp_cobaya_point's rows for the run's seeds, the log prior volume is
    applied, the values equal the serial pool's, logZ is finite;
 16. a gloo group of two local processes: rank 0 on the card runs phase 4's
@@ -95,8 +103,8 @@ non-zero):
 
 The kernels' launch counts are set to 0 just before each of phases 4 to 16
 and read just after; a phase that did not launch the forward kernel, phase
-6 without a backward launch, or phase 12 without a per-lane forward and a
-dL/dx launch, fails. The script prints the card's name
+6 without a backward launch, or phases 6b and 12 without a per-lane forward
+and a dL/dx launch, fails. The script prints the card's name
 and power limit, one JSON line describing every kernel, and as its last
 line {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 before printing any result.
@@ -120,18 +128,22 @@ REPLACES_BACKWARD = "bobe_tpu/models/gp.py:390"
 REPLACES_BACKWARD_X = "bobe_tpu/models/gp.py:386"
 
 # NVIDIA H100 SXM peaks (data sheet): HBM3 bandwidth, FP64 and FP32 outside
-# the tensor cores
+# the tensor cores, FP64 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {8: 34e12, 4: 67e12}
+PEAK_FLOPS_F64_MMA = 67e12
 # f64 operations per distinct Gram entry that the function needs: 3 per
 # dimension for the distance (subtract, multiply, add), ~20 for the exp and
 # the scaling; the backward adds one FMA (2) per dimension for the gradient
 # sum w * D^2 and ~5 for the weight
 FWD_OPS = (3, 20)
 BWD_OPS = (5, 25)
-# the coordinate variant adds, per dimension and entry, the product w * diff
-# and its two sums (row and column)
-BWD_X_OPS = (8, 25)
+# the coordinate variant: the backward's vector work, and on the FP64
+# tensor cores its two products W xs and W^T xs (an FMA for the row and one
+# for the column, per dimension and entry) with the row and column sums of W
+# (the ones column)
+BWD_X_OPS = BWD_OPS
+BWD_X_MMA_OPS = (4, 4)
 # (cap, d, lanes, per-lane x) of the input warp's fits on the main path: the
 # planck-like warp fit of phase 12 (209 gated rows) and the planck-like warp
 # run (up to 141 rows), 8 restart lanes
@@ -163,6 +175,11 @@ N30, D30, SIGMA30, MAXITER30, SEED30 = 1200, 30, 0.12, 20, 30
 JAX_D30_FIT_NEG_MLL = 1163.7814835559184
 # relative tolerance of the phase 6 neg_mll against the JAX package's
 D30_RTOL = 1e-6
+# phase 6b: the input warp on phase 6's data, a well-conditioned state (GP
+# noise 1e-6) whose neg_mll and gradient on the card must match the plain
+# versions' on the CPU to WARP30_RTOL; then a fit of WARP30_MAXITER
+# iterations from the four restart rows
+WARP30_NOISE, WARP30_RTOL, WARP30_MAXITER = 1e-6, 1e-9, 20
 
 # ---- phase 8 reference of the JAX package, printed by the same tool: the
 # per-dimension mean and standard deviation of a cold sample_gp_ensemble
@@ -217,12 +234,14 @@ JAX_PLANCK = {
     ],
 }
 # the planck-like run of phase 11: examples/planck_like_synthetic.py's
-# settings, ended at max_evals (min_evals above it). Its depth is cut at the
-# final NS: the merged-run cap (BOBE_TPU_NS_BOOST_CAP) is 3 where a user's
-# run has 16, so the final pass is 2 dynamic runs and a 1-run static top-up
-# (each NS on the gated GP takes ~30 s of the card's launch-bound loop)
+# settings, ended at max_evals (min_evals above it). Its depth is cut twice:
+# at 80 evaluations (the example runs to convergence, up to 500), and at the
+# final NS, whose merged-run cap (BOBE_TPU_NS_BOOST_CAP) is 3 where a user's
+# run has 16, so the final pass is 2 dynamic runs (the count an unknown
+# sampler noise gives) and a 1-run static top-up merged with them (each NS
+# on the gated GP takes ~30-45 s of the card's launch-bound loop)
 PLANCK_NS_BOOST_CAP = 3
-PLANCK_RUN = dict(acq="wipstd", min_evals=1000, max_evals=120,
+PLANCK_RUN = dict(acq="wipstd", min_evals=1000, max_evals=80,
                   max_gp_size=600, logz_threshold=0.05, fit_n_points=8,
                   batch_size=4, ns_n_points=12, convergence_n_iters=2,
                   do_final_ns=True)
@@ -443,6 +462,15 @@ def phase_backward_x_check():
             for d in (1, 6, 30, 40)
             for lanes, per_lane in ((1, False), (4, False), (1, True),
                                     (4, True))]
+    # 8 lanes on both sides of backward_x_tile's switch from 32- to 64-row
+    # tiles (between caps 320 and 321 at 8 lanes), ragged caps among them
+    grid += [(cap, d, 8, per_lane) for cap in (200, 300, 320, 330)
+             for d in (6, 30) for per_lane in (True, False)]
+    lib = kr.build_library()
+    if any(kr.fold_runs(t) != lib.bobe_gram_fold_runs(t) for t in range(1, 65)):
+        raise AssertionError("phase 2b: kernels.fold_runs differs from the "
+                             "kernel's")
+    tiles = set()
     for name in ("rbf", "matern"):
         for cap, d, lanes, per_lane in grid + [WARP_FIT_SHAPE]:
             x, mask, ls, amp, _, n = _inputs(
@@ -476,25 +504,40 @@ def phase_backward_x_check():
             if bool((got[2][:, n:] != 0).any()):
                 raise AssertionError(f"{what}: pad rows of dL/dx are not "
                                      "exactly 0")
+            tickets = kr.ticket_buffer(torch.cuda.current_stream(x.device),
+                                       0)
+            if bool((tickets != 0).any()):
+                raise AssertionError(f"{what}: tickets not reset")
+            tiles.add(kr.backward_x_tile(cap, d, lanes))
             n_cases += 1
     _sync()
-    print(f"[phase 2b] {n_cases} dL/dx cases agree with "
+    print(f"[phase 2b] {n_cases} dL/dx cases (tile edges "
+          f"{sorted(tiles)}) agree with "
           f"gram_masked_backward_plain(need_x=True): max abs err "
           f"{worst_abs:.3e}, max err / sum_j|W (x_i - x_j)|/l^2 "
           f"{worst_rel:.3e} (tolerance 1e-10); pad rows exactly 0; two "
-          "launches bit-identical in every case")
+          "launches bit-identical in every case; tickets 0 after every call")
+    if tiles != {32, 64}:
+        raise AssertionError(f"phase 2b: the dL/dx cases ran tile edges "
+                             f"{sorted(tiles)}, not both 32 and 64")
     return worst_abs
 
 
 def _device_ms(launch, n=50, reps=5):
     """Device time of one launch: a CUDA graph of n back-to-back launches,
-    replayed ``reps`` times between CUDA events; the median over n."""
+    replayed ``reps`` times between CUDA events; the median over n. The
+    warm-up launch runs on the capture stream, so that whatever a launch
+    allocates once (the coordinate backward's ticket buffer, one per
+    stream) is allocated outside the graph."""
     import torch
 
-    launch()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        launch()
     _sync()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(n):
             launch()
     graph.replay()
@@ -525,10 +568,12 @@ def _wall_ms(fn, n=50):
 
 def bound_ms(kind, cap, d, lanes, itemsize=8, per_lane=False):
     """The least time for the work: each input read once and each output
-    written once at the HBM rate, or the f64 (f32) operations on the
-    cap (cap + 1) / 2 distinct entries at the FP64 (FP32) peak, whichever is
-    larger. ``kind``: forward, backward or backward_x (which also writes
-    dL/dx). Returns (ms, "bytes" or "operations")."""
+    written once at the HBM rate, the f64 (f32) vector operations on the
+    cap (cap + 1) / 2 distinct entries at the FP64 (FP32) peak, or the
+    coordinate variant's products at the FP64 tensor-core peak, whichever is
+    largest (the tensor cores run beside the vector units). ``kind``:
+    forward, backward or backward_x (which also writes dL/dx). Returns (ms,
+    "bytes" or "operations")."""
     per_dim, fixed = {"forward": FWD_OPS, "backward": BWD_OPS,
                       "backward_x": BWD_X_OPS}[kind]
     inputs = (lanes if per_lane else 1) * cap * d + cap + lanes * (d + 1)
@@ -537,9 +582,13 @@ def bound_ms(kind, cap, d, lanes, itemsize=8, per_lane=False):
     outputs = {"forward": 0, "backward": lanes * (d + 1),
                "backward_x": lanes * (d + 1) + lanes * cap * d}[kind]
     nbytes = itemsize * (inputs + big + outputs)
-    ops = lanes * cap * (cap + 1) / 2 * (per_dim * d + fixed)
+    entries = lanes * cap * (cap + 1) / 2
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_FLOPS[itemsize] * 1e3
+    t_ops = entries * (per_dim * d + fixed) / PEAK_FLOPS[itemsize] * 1e3
+    if kind == "backward_x":
+        mma_dim, mma_fixed = BWD_X_MMA_OPS
+        t_ops = max(t_ops, entries * (mma_dim * d + mma_fixed)
+                    / PEAK_FLOPS_F64_MMA * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -583,9 +632,10 @@ def _time_shape(kr, dev, out, cap, d, lanes, per_lane):
     g_ls = torch.empty((lanes, d), dtype=torch.float64, device=dev)
     g_amp = torch.empty((lanes,), dtype=torch.float64, device=dev)
     if per_lane:
-        dx_scratch = torch.empty(
-            kr.backward_dx_scratch_size(cap, d, lanes),
-            dtype=torch.float64, device=dev)
+        n_part, n_dx, _ = kr.backward_x_scratch_sizes(
+            cap, d, lanes, kr.backward_x_tile(cap, d, lanes))
+        part = torch.empty(n_part, dtype=torch.float64, device=dev)
+        dx_scratch = torch.empty(n_dx, dtype=torch.float64, device=dev)
         g_x = torch.empty((lanes, cap, d), dtype=torch.float64,
                           device=dev)
     runs = {
@@ -605,10 +655,8 @@ def _time_shape(kr, dev, out, cap, d, lanes, per_lane):
     }
     if per_lane:
         runs["backward_x"] = (
-            lambda: kr.launch_backward("rbf", x, mask, ls, amp, g,
-                                       scratch, g_ls, g_amp,
-                                       dx_scratch=dx_scratch,
-                                       grad_x=g_x),
+            lambda: kr.launch_backward_x("rbf", x, mask, ls, amp, g, part,
+                                         dx_scratch, g_ls, g_amp, g_x),
             lambda: kr.gram_masked_backward_x("rbf", x, mask, ls, amp,
                                               g),
             lambda: kr.gram_masked_backward_plain(
@@ -624,6 +672,17 @@ def _time_shape(kr, dev, out, cap, d, lanes, per_lane):
         row = {"ms": t_dev, "wrapper_ms": t_wall,
                "plain_ms": min(t_p0, t_p1), "bound_ms": t_bound,
                "bound_by": by}
+        extra = ""
+        if kind == "backward_x":
+            # device launches of one wrapper call, and its tile edge
+            row["launches_per_call"] = _device_launches(wrapper)
+            row["tile"] = kr.backward_x_tile(cap, d, lanes)
+            extra = (f", {row['launches_per_call']} launch(es) per call, "
+                     f"tile {row['tile']}")
+            if row["launches_per_call"] != 1:
+                raise AssertionError(f"phase 3: the dL/dx backward made "
+                                     f"{row['launches_per_call']} device "
+                                     "launches in one call, not 1")
         out[(kind, cap, d, lanes, per_lane)] = row
         print(f"[phase 3] {kind} rbf f64 cap={cap} d={d} "
               f"lanes={lanes} per-lane x={per_lane}: device "
@@ -631,7 +690,7 @@ def _time_shape(kr, dev, out, cap, d, lanes, per_lane):
               f"{t_wall:.4f} ms/call, plain {row['plain_ms']:.4f} ms "
               f"(before/after {t_p0:.4f}/{t_p1:.4f}), bound "
               f"{t_bound:.4f} ms ({by}), device/bound "
-              f"{t_dev / t_bound:.1f}x")
+              f"{t_dev / t_bound:.1f}x{extra}")
 
 
 def _state_on(gp, device_type):
@@ -882,6 +941,73 @@ def phase_fit_d30(device):
         raise AssertionError(f"phase 6: neg_mll {nmll} is not within "
                              f"{D30_RTOL:g} of the JAX package's")
     return {"fit_s": t_fit, "neg_mll": nmll}
+
+
+def _warp_d30_x0(gp):
+    """Phase 6b's four restart rows: the warped GP's own initial
+    log-hyperparameters (identity warp), then phase 6's three seeded
+    lengthscale and amplitude rows with warps drawn near the identity, as
+    gp.fit draws its random restarts."""
+    import numpy as np
+
+    _, _, x0_extra = _d30_data()
+    warps = np.random.default_rng(SEED30 + 1).normal(
+        0.0, 0.1, size=(len(x0_extra), 2 * D30))
+    return np.vstack([np.log(gp.get_hyperparams().cpu().numpy())[None],
+                      np.hstack([x0_extra, warps])])
+
+
+def phase_warp_d30(device):
+    """The input warp at d=30 (phase 6's data, cap 1280, four restart
+    lanes): neg_mll and its gradient through the per-lane forward and the
+    dL/dx backward on ``device`` against the plain versions on the CPU,
+    then a warp fit from the same rows."""
+    import numpy as np
+    import torch
+
+    from bobe_tpu_torch.models import gp as gpm
+    from bobe_tpu_torch.ops import kernels as kr
+
+    x, y, _ = _d30_data()
+    gps = {dev: gpm.GP(train_x=x, train_y=y, noise=WARP30_NOISE,
+                       input_warp=True, device=dev)
+           for dev in (device, "cpu")}
+    gp = gps[device]
+    x0 = _warp_d30_x0(gp)
+    out = {}
+    for dev, g in gps.items():
+        tlp = torch.as_tensor(x0, device=g.device).requires_grad_(True)
+        val = gpm.neg_mll(g.state, g.cfg, tlp)
+        (grad,) = torch.autograd.grad(val.sum(), tlp)
+        out[dev] = (val.detach().cpu().numpy(), grad.cpu().numpy())
+    (v, gr), (rv, rg) = out[device], out["cpu"]
+    e_v = float(np.max(np.abs(v - rv) / np.abs(rv)))
+    e_g = float(np.max(np.max(np.abs(gr - rg), axis=1)
+                       / np.max(np.abs(rg), axis=1)))
+    print(f"[phase 6b] warped GP (N={N30}, d={D30}, cap {gp.state.cap}, "
+          f"{x0.shape[1]} hyperparameters, noise {WARP30_NOISE:g}): neg_mll "
+          f"over {len(x0)} restart lanes on {device} against the plain "
+          f"versions on the CPU: max relative error {e_v:.2e}, gradient "
+          f"{e_g:.2e} (tolerance {WARP30_RTOL:g})")
+    if not (e_v <= WARP30_RTOL and e_g <= WARP30_RTOL):
+        raise AssertionError("phase 6b: neg_mll or its gradient differs from "
+                             f"the plain versions' beyond rtol {WARP30_RTOL:g}")
+    fx, bx = kr.gram_masked.launches_lane_x, kr.gram_masked_backward_x.launches
+    info, t_fit = _timed(lambda: gp.fit(x0=x0, maxiter=WARP30_MAXITER), device)
+    n_fwd = kr.gram_masked.launches_lane_x - fx
+    n_dx = kr.gram_masked_backward_x.launches - bx
+    print(f"[phase 6b] warp fit ({len(x0)} restarts, maxiter "
+          f"{WARP30_MAXITER}) {t_fit:.3f} s: neg_mll {-info['mll']:.6f} "
+          f"(from {float(np.min(rv)):.6f} at the best restart row); "
+          f"{n_fwd} per-lane forward and {n_dx} dL/dx backward launches")
+    if not np.isfinite(info["mll"]) or -info["mll"] > float(np.min(rv)):
+        raise AssertionError("phase 6b: the warp fit failed or ended above "
+                             "its best starting point")
+    if n_fwd <= 0 or n_dx <= 0:
+        raise AssertionError("phase 6b: the warp fit launched no per-lane "
+                             "forward or no dL/dx backward")
+    return {"fit_s": t_fit, "neg_mll": -info["mll"], "err": e_v,
+            "grad_err": e_g, "fit_fwd": n_fwd, "fit_dx": n_dx}
 
 
 def _device_launches(fn):
@@ -1249,13 +1375,14 @@ def phase_planck_state(device):
 
 
 def phase_planck_run(device):
-    """examples/planck_like_synthetic.py's run, ended at max_evals=120 by
-    min_evals above it: the final fit, dynamic NS and top-up (its merged
-    runs capped at PLANCK_NS_BOOST_CAP)."""
+    """examples/planck_like_synthetic.py's run, ended at max_evals=80 by
+    min_evals above it: the final fit, the dynamic NS and its static top-up
+    (its merged runs capped at PLANCK_NS_BOOST_CAP)."""
     import os
 
     import numpy as np
 
+    from bobe_tpu_torch import bo as bo_mod
     from bobe_tpu_torch.bo import BOBE
     from bobe_tpu_torch.models import toys
 
@@ -1276,11 +1403,23 @@ def phase_planck_run(device):
         svm_s.append((bobe.gp.clf_data_size, time.perf_counter() - t))
 
     bobe.gp.train_classifier = timed_training
+    # every NS call of the run: (dynamic, merged with an earlier run, runs)
+    ns_calls = []
+    ns = bo_mod.nested_sampling
+
+    def recorded_ns(*args, **kw):
+        ns_calls.append((bool(kw.get("dynamic", False)),
+                         kw.get("merge_with") is not None,
+                         int(kw.get("n_runs", 1))))
+        return ns(*args, **kw)
+
+    bo_mod.nested_sampling = recorded_ns
     cap = os.environ.get("BOBE_TPU_NS_BOOST_CAP")
     os.environ["BOBE_TPU_NS_BOOST_CAP"] = str(PLANCK_NS_BOOST_CAP)
     try:
         res = bobe.run(**PLANCK_RUN)
     finally:
+        bo_mod.nested_sampling = ns
         if cap is None:
             del os.environ["BOBE_TPU_NS_BOOST_CAP"]
         else:
@@ -1298,6 +1437,8 @@ def phase_planck_run(device):
           f"{logz.get('dlogz_sampler', np.nan):.4f}, err_total "
           f"{logz.get('err_total', np.nan):.4f}, {len(x)} samples; the last "
           f"Nested Sampling span {rm.last_timing('Nested Sampling'):.3f} s")
+    print("[phase 11] NS calls (dynamic, merged with an earlier run, runs): "
+          + json.dumps(ns_calls))
     print("[phase 11] SVM training (n, s): " + json.dumps(
         [(n, round(t, 4)) for n, t in svm_s]))
     print("[phase 11] timing ledger (s): " + json.dumps(
@@ -1307,6 +1448,11 @@ def phase_planck_run(device):
     if not (logz and np.isfinite(logz["mean"])
             and ledger.get("Nested Sampling", 0) > 0):
         raise AssertionError(f"phase 11: no final dynamic NS evidence: {logz}")
+    top_up = PLANCK_NS_BOOST_CAP - 2
+    if ns_calls[-2:] != [(True, False, 2), (False, True, top_up)]:
+        raise AssertionError("phase 11: the final pass is not 2 dynamic runs "
+                             f"and a {top_up}-run static top-up merged with "
+                             f"them: {ns_calls}")
     if not (gp.clf_data_size > gp.gp_size and gp._clf_ctx is not None
             and np.min(gp.train_y_clf) <= bobe.minus_inf):
         raise AssertionError("phase 11: the classifier did not engage")
@@ -1518,7 +1664,7 @@ POOL_WORKERS = 4
 
 # ---- phase 15: examples/planck_lite_lcdm.py's constructor and run through a
 # stand-in cobaya package (cobaya, CAMB and the Planck data are not on the
-# card's host), the run cut to max_evals=72 (from 500) and min_evals with it
+# card's host), the run cut to max_evals=64 (from 500) and min_evals with it
 # (from 100). A cut run has not converged, and without an NS it would end on
 # the final NUTS fallback (2000 transitions per dimension): it ends on the
 # final NS instead (do_final_ns=True, the example's default is False), whose
@@ -1530,7 +1676,7 @@ COBAYA_SURFACE = "tests/data/cobaya_lcdm_lite_surface.json"
 COBAYA_INIT = dict(likelihood_name="planck_lite_lcdm", n_sobol_init=32,
                    n_cobaya_init=8, use_clf=True, clf_type="svm", seed=10,
                    pool="multiprocess")
-COBAYA_RUN = dict(acq="wipstd", min_evals=72, max_evals=72, max_gp_size=600,
+COBAYA_RUN = dict(acq="wipstd", min_evals=64, max_evals=64, max_gp_size=600,
                   logz_threshold=0.02, fit_n_points=8, batch_size=4,
                   ns_n_points=12, convergence_n_iters=2, do_final_ns=True)
 COBAYA_NS_BOOST_CAP = 2
@@ -2453,6 +2599,7 @@ def main():
                                                   mc_points_method="NS")),
                        ("5", lambda: phase_real_size("cuda")),
                        ("6", lambda: phase_fit_d30("cuda")),
+                       ("6b", lambda: phase_warp_d30("cuda")),
                        ("7", lambda: phase_slice("cuda", label="7")),
                        ("8", lambda: phase_pools("cuda")),
                        ("9", lambda: phase_fallback("cuda")),
@@ -2481,9 +2628,10 @@ def main():
     if launches["6"][1] <= 0:
         raise AssertionError("phase 6 did not launch the Gram backward "
                              "kernel")
-    if launches["12"][2] <= 0 or lane_x["12"] <= 0:
-        raise AssertionError("phase 12 did not launch the per-lane forward "
-                             "and the dL/dx backward")
+    for label in ("6b", "12"):
+        if launches[label][2] <= 0 or lane_x[label] <= 0:
+            raise AssertionError(f"phase {label} did not launch the per-lane "
+                                 "forward and the dL/dx backward")
     res = results["6"]
     t_fwd = times[("forward", 1280, 30, 4, False)]["ms"]
     t_bwd = times[("backward", 1280, 30, 4, False)]["ms"]
@@ -2492,6 +2640,16 @@ def main():
           f"{launches['6'][0]} x {t_fwd:.4f} ms + {launches['6'][1]} x "
           f"{t_bwd:.4f} ms (phase 3 device times at cap 1280, d=30, 4 "
           f"lanes) = {k_ms:.1f} ms of {res['fit_s'] * 1e3:.1f} ms "
+          f"({100 * k_ms / (res['fit_s'] * 1e3):.2f} %)")
+    res = results["6b"]
+    t_fwd = times[("forward", 1280, 30, 4, True)]["ms"]
+    t_bwd = times[("backward_x", 1280, 30, 4, True)]["ms"]
+    k_ms = res["fit_fwd"] * t_fwd + res["fit_dx"] * t_bwd
+    print(f"[phase 6b] the per-lane forward and the dL/dx backward's share "
+          f"of the warp fit: {res['fit_fwd']} x {t_fwd:.4f} ms + "
+          f"{res['fit_dx']} x {t_bwd:.4f} ms (phase 3 device times at cap "
+          f"1280, d=30, 4 lanes, per-lane x) = {k_ms:.1f} ms of "
+          f"{res['fit_s'] * 1e3:.1f} ms "
           f"({100 * k_ms / (res['fit_s'] * 1e3):.2f} %)")
     ledgers = {k: {p: round(v, 3) for p, v in results[k]["ledger"].items()}
                for k in ("4", "7")}
@@ -2502,6 +2660,12 @@ def main():
         entry["launches"] = sum(v[i] for v in launches.values())
         entry["launches_by_phase"] = {k: v[i] for k, v in launches.items()}
     fwd["per_lane_x"]["launches_by_phase"] = lane_x
+    # the coordinate backward at every timed shape, launches per call
+    bwd_x["by_shape"] = [
+        {"cap": k[1], "d": k[2], "lanes": k[3], "ms": v["ms"],
+         "bound_ms": v["bound_ms"], "launches_per_call":
+         v["launches_per_call"], "tile": v["tile"]}
+        for k, v in times.items() if k[0] == "backward_x"]
     phase_cold_start()
     print(json.dumps({"kernels": [fwd, bwd, bwd_x]}))
     print(json.dumps({"ok": True, "device": {

@@ -259,12 +259,22 @@ def test_per_lane_forward_matches_plain_on_card(cuda, name, lanes, cap, n,
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["rbf", "matern"])
 @pytest.mark.parametrize("lanes,cap,n,d", [(8, 384, 300, 6),
-                                           (4, 1280, 1200, 30)])
+                                           (4, 1280, 1200, 30),
+                                           (8, 200, 150, 6),
+                                           (8, 256, 209, 6),
+                                           (8, 300, 250, 6),
+                                           (8, 330, 300, 6),
+                                           (4, 300, 210, 40),
+                                           (1, 384, 300, 6)])
 def test_backward_x_matches_plain_on_card(cuda, name, lanes, cap, n, d):
     """dL/dx (and the lengthscale and amplitude parts) of the coordinate
     variant against the plain backward for a cotangent that is not
     symmetric, within 1e-10 of the largest term; pad rows exactly 0; two
-    launches bit-identical; the hyperparameter-only kernel unchanged."""
+    launches bit-identical; the hyperparameter-only kernel unchanged. The
+    shapes take 32-row tiles (caps 200, 256, 300 at 8 lanes, ragged ones
+    among them), 64-row tiles (caps 330 and 384 at 8 lanes, 1280 at 4, the
+    last folding each row tile's 20 contributions in 4 runs), d=40 (two
+    chunks of dimensions) and one lane."""
     x, mask, ls, amp, g = _lane_inputs(lanes, cap, n, d, 32, cuda)
     got = tkr.gram_masked_backward_x(name, x, mask, ls, amp, g)
     again = tkr.gram_masked_backward_x(name, x, mask, ls, amp, g)
@@ -279,6 +289,53 @@ def test_backward_x_matches_plain_on_card(cuda, name, lanes, cap, n, d):
     for k, w in zip(ls_only, want[:2]):
         assert float((k - w).abs().max()) <= 1e-10 * float(w.abs().max()) \
             * cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,cap,n,d", [(8, 256, 209, 6),
+                                           (4, 1280, 1200, 30)])
+def test_backward_x_tickets_reset_on_card(cuda, lanes, cap, n, d):
+    """The coordinate backward folds through integer tickets in a buffer
+    that persists between calls: after each of two calls in a row on the
+    current stream every ticket is back at 0, each call is one counted
+    launch, and the two agree bit for bit."""
+    x, mask, ls, amp, g = _lane_inputs(lanes, cap, n, d, 35, cuda)
+    before = tkr.gram_masked_backward_x.launches
+    runs = []
+    for _ in range(2):
+        runs.append(tkr.gram_masked_backward_x("rbf", x, mask, ls, amp, g))
+        torch.cuda.synchronize()
+        tickets = tkr.ticket_buffer(torch.cuda.current_stream(cuda), 0)
+        assert int(tickets.abs().sum()) == 0
+    assert tkr.gram_masked_backward_x.launches == before + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_x_on_two_streams_on_card(cuda):
+    """Coordinate backwards enqueued on two side streams at once (two
+    shapes, several calls each, interleaved) each draw on their own
+    stream's tickets: every result equals the same call's on the current
+    stream bit for bit, and both streams' tickets end at 0."""
+    cases = [_lane_inputs(8, 256, 209, 6, 36, cuda),
+             _lane_inputs(4, 1280, 1200, 30, 37, cuda)]
+    want = [tkr.gram_masked_backward_x("rbf", *c) for c in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    got = [[] for _ in cases]
+    for _ in range(4):
+        for c, s, out in zip(cases, streams, got):
+            with torch.cuda.stream(s):
+                out.append(tkr.gram_masked_backward_x("rbf", *c))
+    torch.cuda.synchronize()
+    for w, outs in zip(want, got):
+        for res in outs:
+            for a, b in zip(res, w):
+                assert torch.equal(a, b)
+    for s in streams:
+        assert int(tkr.ticket_buffer(s, 0).abs().sum()) == 0
 
 
 @pytest.mark.cuda

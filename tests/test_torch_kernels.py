@@ -246,3 +246,40 @@ def test_gram_masked_function_takes_the_plain_versions_on_cpu():
 def test_kernel_library_is_not_built_at_import():
     assert tkr._LIBS == {}
     assert tkr.build_info == {}
+
+
+# The coordinate backward's tile edge: 64 where lanes x pairs of 64-row
+# tiles reach the card's 132 SMs, else 32; the boundary at 8, 4 and 1 lanes.
+@pytest.mark.parametrize("cap,lanes,tile", [
+    (200, 8, 32), (256, 8, 32), (300, 8, 32), (320, 8, 32), (321, 8, 64),
+    (384, 8, 64), (448, 4, 32), (449, 4, 64), (1280, 4, 64), (960, 1, 32),
+    (961, 1, 64), (1, 1, 32), (2048, 4, 64)])
+def test_backward_x_tile_is_chosen_by_shape(cap, lanes, tile):
+    """The choice depends on (cap, d, lanes) alone: the same for every d,
+    on every call, and it builds no library (it runs here without nvcc)."""
+    got = {tkr.backward_x_tile(cap, d, lanes) for d in (1, 6, 30, 40, 128)}
+    assert got == {tile}
+    assert tkr.backward_x_tile(cap, 6, lanes) == tile
+    t = -(-cap // 64)
+    assert (lanes * t * (t + 1) // 2 >= 132) == (tile == 64)
+
+
+@pytest.mark.parametrize("t,runs", [(1, 1), (4, 1), (8, 1), (9, 3), (16, 4),
+                                    (20, 4), (32, 6), (64, 8)])
+def test_backward_x_fold_runs(t, runs):
+    """A row tile's t contributions fold in one run up to t = 8, else in
+    runs of ceil(sqrt(t)) contributions."""
+    assert tkr.fold_runs(t) == runs
+
+
+@pytest.mark.parametrize("cap,d,lanes,tile,sizes", [
+    (256, 6, 8, 32, (8 * 36 * 7, 8 * (72 + 8) * 32 * 6, 8 * 17)),
+    (256, 6, 8, 64, (8 * 10 * 7, 8 * (20 + 4) * 64 * 6, 8 * 9)),
+    (1280, 30, 4, 64, (4 * 210 * 31, 4 * (420 + 80) * 64 * 30, 4 * 101)),
+    (200, 40, 1, 32, (28 * 41, (56 + 7) * 32 * 40, 15))])
+def test_backward_x_scratch_sizes(cap, d, lanes, tile, sizes):
+    """Per lane: pairs x (d + 1) hyperparameter partials; 2 pairs + T R
+    slabs of tile rows x d (the pairs' contributions and the run sums); T R
+    + T + 1 tickets; T = ceil(cap / tile), pairs = T (T + 1) / 2, R =
+    fold_runs(T)."""
+    assert tkr.backward_x_scratch_sizes(cap, d, lanes, tile) == sizes

@@ -152,6 +152,32 @@ def test_plain_backward_grad_x_matches_autograd_and_jax(kernel, per_lane):
                                    atol=1e-10 * np.abs(_np(jx)).max())
 
 
+@pytest.mark.parametrize("kernel", ["rbf", "matern"])
+def test_plain_backward_grad_x_matches_jax_at_d30(kernel):
+    """The plain dL/dx at the input warp's d=30 shape (4 lanes, per-lane x,
+    cap 384, a cotangent that is not symmetric) against jax.vjp of the JAX
+    package's XLA Gram, lane by lane, at rtol 1e-9 with a floor of 1e-11 of
+    the lane's largest component; pad rows exactly 0."""
+    rng = np.random.default_rng(11)
+    R, cap, n, d = 4, 384, 300, 30
+    x = rng.uniform(size=(R, cap, d))
+    mask = (np.arange(cap) < n).astype(np.float64)
+    ls = rng.uniform(0.5, 2.0, size=(R, d)) * np.sqrt(d / 8)
+    amp = rng.uniform(0.5, 2.0, size=R)
+    g = rng.normal(size=(R, cap, cap))
+    t = lambda a: torch.as_tensor(a)
+    _, _, gx = tkr.gram_masked_backward_plain(kernel, t(x), t(mask), t(ls),
+                                              t(amp), t(g), need_x=True)
+    assert bool((gx[:, n:] == 0).all())
+    for r in range(R):
+        _, vjp = jax.vjp(lambda xx: jkr.gram_masked(
+            kernel, xx, jnp.asarray(mask), jnp.asarray(ls[r]),
+            jnp.asarray(amp[r]), 1e-6), jnp.asarray(x[r]))
+        (jx,) = vjp(jnp.asarray(g[r]))
+        np.testing.assert_allclose(_np(gx[r]), _np(jx), rtol=1e-9,
+                                   atol=1e-11 * np.abs(_np(jx)).max())
+
+
 def test_warp_fit_from_the_same_x0_matches_jax():
     """A warp fit (4 restarts, 1 %-noise target) from the same x0 ends
     within 1e-6 |f| of the JAX package's best neg_mll; the installed state

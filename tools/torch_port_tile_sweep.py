@@ -8,7 +8,13 @@ builds in turns (64, 32, 32, 64) within one process. Each build's forward
 must equal the first's bit for bit, and its backward agree to 1e-10 of the
 largest gradient component (the sums run in another order).
 
-    python tools/torch_port_tile_sweep.py
+With ``--backward-x`` it times the coordinate backward instead, whose one
+library holds both tile edges (``kernels.launch_backward_x(tile=...)``), at
+the input warp's shapes with per-lane x, in the same turns, beside the edge
+that ``kernels.backward_x_tile`` picks; each edge's dL/dx must agree with
+the other's to 1e-10 of the largest component.
+
+    python tools/torch_port_tile_sweep.py [--backward-x]
 """
 from __future__ import annotations
 
@@ -26,6 +32,39 @@ TILES = (64, 32, 32, 64)
 SHAPES = ((128, 2), (128, 8), (1024, 8), (1280, 8), (2048, 8), (1280, 30))
 
 
+# (cap, d, lanes) of the coordinate backward: the warp fit's shape, cap 384,
+# the warp at d=30, and caps past the 32/64 switch at 8 lanes
+SHAPES_X = ((256, 6, 8), (384, 6, 8), (1280, 30, 4), (448, 6, 8),
+            (512, 6, 8), (1024, 6, 8), (1280, 6, 8), (2048, 30, 4))
+
+
+def sweep_backward_x(cs, kr):
+    dev = torch.device("cuda")
+    for cap, d, lanes in SHAPES_X:
+        x, mask, ls, amp, _, _ = cs._inputs(cap, d, cap + lanes,
+                                            torch.float64, dev, lanes, True)
+        g = torch.as_tensor(np.random.default_rng(cap).normal(
+            size=(lanes, cap, cap)), device=dev)
+        new = lambda n: torch.empty(n, dtype=torch.float64, device=dev)
+        ref, row = None, []
+        for tile in TILES:
+            n_part, n_dx, _ = kr.backward_x_scratch_sizes(cap, d, lanes, tile)
+            part, dxp = new(n_part), new(n_dx)
+            g_ls, g_amp, g_x = new((lanes, d)), new(lanes), new((lanes, cap, d))
+            t = cs._device_ms(lambda: kr.launch_backward_x(
+                "rbf", x, mask, ls, amp, g, part, dxp, g_ls, g_amp, g_x,
+                tile=tile))
+            if ref is None:
+                ref = g_x.clone()
+            elif float((g_x - ref).abs().max() / ref.abs().max()) > 1e-10:
+                raise AssertionError(f"tile {tile} cap={cap} d={d}: dL/dx "
+                                     "differs")
+            row.append(f"t{tile} {t * 1e3:.2f} us")
+        print(f"backward_x cap={cap} d={d} lanes={lanes} (picks "
+              f"{kr.backward_x_tile(cap, d, lanes)}): " + " | ".join(row),
+              flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("torch_port_tile_sweep: no CUDA device visible",
@@ -37,6 +76,13 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if sys.argv[1:] == ["--backward-x"]:
+        kr.build_library()
+        for ln in kr.build_info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "bwd_x" in ln:
+                print(f"ptxas: {ln.strip()}")
+        sweep_backward_x(cs, kr)
+        return 0
     for tile in sorted(set(TILES)):
         kr.build_library(tile)
         regs = [ln.split(":", 1)[1].strip()
