@@ -7,7 +7,8 @@ Counterpart of ``bobe_tpu/acquisition.py`` (same classes and methods):
   incumbent, all jittered);
 * the WIP sweep over the MC pool is one batched computation
   (ops/fantasy.wip_sweep): one triangular solve and one matrix product for
-  all candidates;
+  all candidates, split over the devices of the production mesh when there
+  is one (parallel/mesh.py);
 * the best pool candidate is polished by batched L-BFGS on the fantasy
   variance below ``REFINE_MAX_N`` GP points;
 * a batch is chosen greedily: by GP-mean hallucination below
@@ -33,6 +34,8 @@ from .ops.fantasy import (
     wip_greedy_batch,
     wip_sweep,
 )
+from .parallel.mesh import (production_mesh, sharded_posterior,
+                            sharded_posterior_cov, sharded_wip_core)
 from .utils.log import get_logger
 from .utils.seed import get_numpy_rng
 
@@ -62,9 +65,12 @@ def _ei_objective_core(gp, x0, best_y: float, zeta: float, use_log: bool,
                                      method="lbfgs", maxiter=maxiter)
 
 
-def _wip_sweep_core(gp, mc_points, use_std: bool):
+def _wip_sweep_core(gp, mc_points, use_std: bool, mesh=None):
     """Full-pool WIP sweep in warp space (the identity unless the GP warps
-    its inputs). Returns (acq_vals, V, var)."""
+    its inputs). Returns (acq_vals, V, var). With a ``mesh`` the pool is
+    split over its devices (parallel/mesh.py)."""
+    if mesh is not None:
+        return sharded_wip_core(gp, mc_points, use_std, mesh)
     st, cfg = gp.state, gp.cfg
     ls, amp = torch.exp(st.log_ls), torch.exp(st.log_amp)
     mc_w = gpm.query_coords(st, cfg, mc_points)
@@ -75,17 +81,25 @@ def _wip_sweep_core(gp, mc_points, use_std: bool):
     return acq, V, var
 
 
-def _wip_batch_core(gp, mc_points, use_std: bool, n_batch: int):
+def _wip_batch_core(gp, mc_points, use_std: bool, n_batch: int, mesh=None):
     """Fused greedy batch: posterior solve + n_batch rank-1 downdate
     selections, in warp space; the points returned are raw (the likelihood
-    evaluates them)."""
+    evaluates them). With a ``mesh`` the posterior solve and the pool
+    covariance are split over its devices and the selection runs on the
+    GP's."""
     st, cfg = gp.state, gp.cfg
     ls, amp = torch.exp(st.log_ls), torch.exp(st.log_amp)
-    mc_w = gpm.query_coords(st, cfg, mc_points)
-    V, var = posterior_batch(cfg.kernel, gpm.train_coords(st, cfg), st.mask(),
-                             st.chol, mc_w, ls, amp, cfg.noise)
+    C = None
+    if mesh is not None:
+        mc_w, V, var, n = sharded_posterior(gp, mc_points, mesh)
+        C = sharded_posterior_cov(gp, mc_w, V, var, mesh)[:n, :n]
+        mc_w, V, var = mc_w[:n], V[:, :n], var[:n]
+    else:
+        mc_w = gpm.query_coords(st, cfg, mc_points)
+        V, var = posterior_batch(cfg.kernel, gpm.train_coords(st, cfg),
+                                 st.mask(), st.chol, mc_w, ls, amp, cfg.noise)
     idx, vals = wip_greedy_batch(cfg.kernel, mc_w, V, var, ls, amp,
-                                 cfg.noise, st.y_std, use_std, n_batch)
+                                 cfg.noise, st.y_std, use_std, n_batch, C=C)
     return mc_points[idx], vals
 
 
@@ -243,7 +257,8 @@ class WeightedIntegratedPosteriorBase(AcquisitionFunction):
                               rng=rng, gp=gp)
         mc_points = torch.as_tensor(mc_np, dtype=config.DTYPE,
                                     device=gp.device)
-        pts, vals = _wip_batch_core(gp, mc_points, self._use_std, int(n_batch))
+        pts, vals = _wip_batch_core(gp, mc_points, self._use_std,
+                                    int(n_batch), production_mesh(gp.device))
         return pts.cpu().numpy(), vals.cpu().numpy()
 
     def fun(self, x, gp, mc_points=None, k_train_mc=None):
@@ -262,7 +277,8 @@ class WeightedIntegratedPosteriorBase(AcquisitionFunction):
             rng=rng, gp=gp))
         mc_points = torch.as_tensor(mc_np, dtype=config.DTYPE,
                                     device=gp.device)
-        acq_vals, V, var = _wip_sweep_core(gp, mc_points, self._use_std)
+        acq_vals, V, var = _wip_sweep_core(gp, mc_points, self._use_std,
+                                           production_mesh(gp.device))
         acq_np = acq_vals.cpu().numpy()
         i_best = int(np.argmin(acq_np))
         acq_min = float(acq_np[i_best])

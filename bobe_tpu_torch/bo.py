@@ -37,7 +37,12 @@ likelihood evaluations run on the host through the evaluation pool (in
 process, in worker processes with ``pool="multiprocess"``, or on every rank
 of a torch.distributed job with ``pool="distributed"``, where the ranks
 other than 0 serve evaluations inside the constructor and never touch a
-device). The server raises ``NotImplementedError`` naming its ROADMAP item.
+device).
+
+With ``server=<socket>`` or ``BOBE_TPU_SERVER`` set, ``BOBE(...)`` returns
+a client of a persistent device server instead (``client.ServerBOBE``): its
+constructor captures the arguments and touches no device, and its ``run()``
+runs on the server, which calls the likelihood back in this process.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ import torch
 
 from . import config
 from .acquisition import EI, WIPV, LogEI, WIPStd, get_mc_samples
-from .likelihood import CobayaLikelihood, Likelihood
+from .client import ServerBOBE, client_mode
+from .likelihood import Likelihood, make_likelihood
 from .models.clf_gp import GPwithClassifier
 from .models.gp import GP
 from .parallel.pool import EvalPool, make_pool
@@ -98,6 +104,14 @@ def load_gp_statedict(state_dict: Dict[str, Any], clf: bool, device=None):
 class BOBE:
     """Bayesian evidence via GP-surrogate Bayesian optimization."""
 
+    def __new__(cls, *args, server: Optional[str] = None, **kwargs):
+        # with a device server (``server=`` or BOBE_TPU_SERVER) the run is
+        # the server's: the client's BOBE (client.py) captures the
+        # arguments and touches no device
+        if server is not None or client_mode():
+            return ServerBOBE(*args, server=server, **kwargs)
+        return super().__new__(cls)
+
     def __init__(self,
                  loglikelihood: Union[Callable, str, Dict[str, Any], Likelihood],
                  param_list: Optional[List[str]] = None,
@@ -129,16 +143,13 @@ class BOBE:
                  server: Optional[str] = None,
                  device=None):
         update_verbosity(verbosity)
-        if server is not None or os.environ.get("BOBE_TPU_SERVER"):
-            raise config.not_ported("The device server", "server")
-
         self.pool = make_pool(pool) if isinstance(pool, str) else pool
         self.is_main = self.pool.is_main_process
         # setup runs under close-on-exit: a failure on rank 0 must still
         # broadcast EXIT (pool.close() is idempotent) to the worker ranks
         # waiting in worker_loop
         try:
-            self.loglikelihood = self._prepare_likelihood(
+            self.loglikelihood = make_likelihood(
                 loglikelihood, param_list, param_bounds, param_labels,
                 likelihood_name, confidence_for_unbounded, minus_inf)
             self.ndim = len(self.loglikelihood.param_list)
@@ -251,27 +262,6 @@ class BOBE:
 
     # ------------------------------------------------------------------ init
 
-    @staticmethod
-    def _prepare_likelihood(loglikelihood, param_list, param_bounds,
-                            param_labels, likelihood_name,
-                            confidence_for_unbounded, minus_inf
-                            ) -> Likelihood:
-        if isinstance(loglikelihood, Likelihood):
-            return loglikelihood
-        if isinstance(loglikelihood, (str, dict)):
-            return CobayaLikelihood(
-                input_file_dict=loglikelihood,
-                confidence_for_unbounded=confidence_for_unbounded,
-                minus_inf=minus_inf,
-                name=likelihood_name or "CobayaLikelihood")
-        if callable(loglikelihood):
-            return Likelihood(loglikelihood=loglikelihood, param_list=param_list,
-                              param_bounds=param_bounds,
-                              param_labels=param_labels,
-                              name=likelihood_name, minus_inf=minus_inf)
-        raise ValueError("loglikelihood must be a callable, Cobaya YAML path, "
-                         "Cobaya info dict, or Likelihood instance")
-
     def _get_initial_training_data(self, n_cobaya_init, n_sobol_init,
                                    init_train_x=None, init_train_y=None):
         """Sobol points, then (for a Cobaya likelihood) ``n_cobaya_init``
@@ -288,8 +278,7 @@ class BOBE:
         log.info(f"Evaluating {n} Sobol initial points")
         vals = np.asarray(self.pool.run_map_objective(
             self.loglikelihood, pts)).reshape(-1, 1)
-        if isinstance(self.loglikelihood, CobayaLikelihood) \
-                and n_cobaya_init > 0:
+        if self.loglikelihood.is_cobaya and n_cobaya_init > 0:
             log.info(f"Drawing {n_cobaya_init} Cobaya reference points")
             draws = self.pool.get_cobaya_initial_points(
                 self.loglikelihood, n_cobaya_init, rng=self.np_rng)

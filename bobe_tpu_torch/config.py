@@ -67,19 +67,3 @@ def resolve_device(device=None) -> torch.device:
 # (cap, m) cross kernel plus its solve. Larger batches are split.
 PREDICT_CHUNK = 16384
 
-
-# Work that the port has not reached yet, by its ROADMAP.md queue-1 entry.
-# Only the server has a branch that raises; with more than one card the port
-# runs every GP operation on its one device, where the JAX package would
-# shard over a mesh.
-ROADMAP_ITEMS = {
-    "server": "1. server",
-    "multi_gpu": "2. multi-GPU",
-}
-
-
-def not_ported(feature: str, item: str) -> NotImplementedError:
-    """The error every unported branch raises, naming its ROADMAP item."""
-    return NotImplementedError(
-        f"{feature} is not ported to bobe_tpu_torch yet: ROADMAP.md queue 1, "
-        f"item {ROADMAP_ITEMS[item]}")

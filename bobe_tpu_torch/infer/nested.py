@@ -21,6 +21,11 @@ over batched tensor ops with the same semantics:
 Each outer iteration reads the stopping quantities from the device once, and
 each inner iteration reads whether any lane is still active once: the host
 synchronises about (outer + inner) times per run (``NSResult.n_inner``).
+
+With a ``mesh`` (parallel/mesh.py) every likelihood batch, the proposal
+batch of each inner iteration above all, is split over the mesh's devices,
+the GP state replicated on each; the draws stay on the generator's device,
+so only where the batch runs changes.
 """
 from __future__ import annotations
 
@@ -174,18 +179,31 @@ def _replace_batch(loglike_fn, gen, live_x, live_logl, survivor_idx, lstar,
                         n_repeats, max_shrink, spec, draw_dirs)
 
 
+def _loglike_fn(loglike_apply: Callable, ctx, mesh):
+    """x (m, d) -> logL (m,); with a ``mesh`` (parallel/mesh.py) each batch
+    is split over its devices, the GP state replicated on each."""
+    if mesh is None:
+        return lambda x: loglike_apply(ctx, x)
+    from ..parallel.mesh import split_map
+
+    apply = lambda c, x, _: loglike_apply(c, x)
+    return lambda x: split_map(apply, ctx, x, mesh)[0]
+
+
 def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
                nlive: int = 500, dlogz: float = 0.01, maxcall: int = int(5e6),
                kill_frac: float = 0.1, n_repeats: int | None = None,
                max_shrink: int = 40, max_dead: int | None = None,
                live_x=None, live_logl=None, rng=None,
                logvol0: float = 0.0, warn_truncation: bool = True,
-               spec: int | None = None) -> NSResult:
+               spec: int | None = None, mesh=None) -> NSResult:
     """Run nested sampling; ``loglike_apply(ctx, x)`` maps (m, d) -> (m,)
     on ``generator``'s device.
 
     live_x/live_logl optionally seed the live set; ``logvol0`` is the log
-    prior volume the seeded live set covers."""
+    prior volume the seeded live set covers. ``mesh``: the likelihood
+    batches (the proposal batch of every inner iteration) are split over
+    its devices."""
     dt = config.DTYPE
     dev = generator.device
     if live_x is None:
@@ -195,8 +213,9 @@ def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
     else:
         live_x = torch.as_tensor(live_x, dtype=dt, device=dev)
         nlive = live_x.shape[0]
+    loglike_fn = _loglike_fn(loglike_apply, ctx, mesh)
     if live_logl is None:
-        live_logl = loglike_apply(ctx, live_x)
+        live_logl = loglike_fn(live_x)
     live_logl = torch.as_tensor(live_logl, dtype=dt, device=dev)
 
     K = max(1, int(round(nlive * kill_frac)))
@@ -206,7 +225,6 @@ def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
     if max_dead is None:
         max_dead = int(min(1_000_000, max(20_000, nlive * 80)))
     max_dead = ((max_dead + K - 1) // K) * K  # multiple of K
-    loglike_fn = lambda x: loglike_apply(ctx, x)
 
     hs = torch.cumsum(1.0 / (nlive - torch.arange(K, dtype=dt, device=dev)),
                       dim=0)
@@ -393,7 +411,7 @@ def run_nested_dynamic(loglike_apply: Callable, ctx, d: int,
     # the decorrelation depth is the runs' slice depth
     n_rep = ns_kwargs.get("n_repeats") or max(3, int(math.ceil(1.5 * d)))
     bx, bl, dec_calls, dec_iter = _decorrelate(
-        lambda x: loglike_apply(ctx, x), g_dec, bx, bl,
+        _loglike_fn(loglike_apply, ctx, ns_kwargs.get("mesh")), g_dec, bx, bl,
         torch.tensor(l_lo, dtype=dt, device=dev), int(n_rep), 40,
         _resolve_spec(ns_kwargs.get("spec"), d))
 

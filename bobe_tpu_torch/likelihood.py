@@ -26,6 +26,11 @@ class Likelihood:
     param_bounds (2, d); minus_inf floor for failed evaluations.
     """
 
+    # BOBE draws n_cobaya_init initial points from the reference
+    # distribution of a Cobaya likelihood; a device server's stand-in for a
+    # client's Cobaya likelihood sets this on its instance
+    is_cobaya = False
+
     def __init__(self, loglikelihood: Callable,
                  param_list: Optional[List[str]],
                  param_labels: Optional[List[str]] = None,
@@ -96,6 +101,8 @@ class CobayaLikelihood(Likelihood):
     module stands in for it) must be importable there.
     """
 
+    is_cobaya = True
+
     def __init__(self, input_file_dict: Union[str, Dict[str, Any]],
                  confidence_for_unbounded: float = 0.9999995,
                  minus_inf: float = -1e10,
@@ -165,3 +172,26 @@ class CobayaLikelihood(Likelihood):
         if lp < self.minus_inf:
             lp = self.minus_inf
         return pt, lp + self.logprior_vol
+
+
+def make_likelihood(loglikelihood, param_list=None, param_bounds=None,
+                    param_labels=None, likelihood_name=None,
+                    confidence_for_unbounded: float = 0.9999995,
+                    minus_inf: float = -1e10) -> Likelihood:
+    """BOBE's likelihood argument as a ``Likelihood``: an instance as it is,
+    a Cobaya YAML path, YAML text or info dict as a ``CobayaLikelihood``, a
+    callable wrapped with the given names, bounds and labels."""
+    if isinstance(loglikelihood, Likelihood):
+        return loglikelihood
+    if isinstance(loglikelihood, (str, dict)):
+        return CobayaLikelihood(
+            input_file_dict=loglikelihood,
+            confidence_for_unbounded=confidence_for_unbounded,
+            minus_inf=minus_inf,
+            name=likelihood_name or "CobayaLikelihood")
+    if callable(loglikelihood):
+        return Likelihood(loglikelihood=loglikelihood, param_list=param_list,
+                          param_bounds=param_bounds, param_labels=param_labels,
+                          name=likelihood_name, minus_inf=minus_inf)
+    raise ValueError("loglikelihood must be a callable, Cobaya YAML path, "
+                     "Cobaya info dict, or Likelihood instance")

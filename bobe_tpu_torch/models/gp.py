@@ -505,6 +505,25 @@ def _basin_representatives(cand: np.ndarray, scores: np.ndarray,
     return reps
 
 
+def restore_factor(gp, state: Dict[str, Any]) -> None:
+    """Install a state dict's Cholesky factor, alphas and standardization
+    in place of the ones a rebuild from it computed, so that the GP predicts
+    what the GP that wrote the state predicts (a new factorization, on
+    another device or in another order, differs from it by its roundoff)."""
+    n = gp.gp_size
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                  dtype=config.DTYPE, device=gp.device)
+    L, a = t(state["cholesky"]), t(state["alphas"]).reshape(-1)
+    if L.shape != (n, n) or a.shape != (n,):
+        raise ValueError(f"the state's factor {tuple(L.shape)} and alphas "
+                         f"{tuple(a.shape)} do not fit {n} training points")
+    chol, alpha = gp.state.chol.clone(), gp.state.alpha.clone()
+    chol[:n, :n], alpha[:n] = L, a
+    gp.state = gp.state._replace(chol=chol, alpha=alpha,
+                                 y_mean=t(state["y_mean"]),
+                                 y_std=t(state["y_std"]))
+
+
 def _restore_fit_basins(gp, state: Dict[str, Any]) -> None:
     bp = state.get("fit_basins_params")
     bf = state.get("fit_basins_nmll")

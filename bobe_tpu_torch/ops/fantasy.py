@@ -37,16 +37,18 @@ def posterior_batch(kernel_name, x_pad, mask, L, xq, lengthscales, amp, noise):
     return V, _floor(var)
 
 
-def wip_sweep(kernel_name, xq, V, var, lengthscales, amp, noise, y_std,
-              use_std, n_valid=None):
-    """WIPV / WIPStd for every candidate in the MC pool at once.
+def posterior_cov(kernel_name, xa, xb, Va, Vb, lengthscales, amp):
+    """Posterior cross-covariance cov(a, b) = K(a, b) - Va^T Vb of query
+    rows xa (ma, d) and xb (mb, d), with Va, Vb their posterior_batch V."""
+    return kr.cross_kernel(kernel_name, xa, xb, lengthscales, amp) - Va.T @ Vb
 
-    acq[c] = mean_m g(var'(m | add c)) * y_std^p, g = identity (WIPV, p=2)
-    or sqrt (WIPStd, p=1). ``n_valid``: integrate over the first n_valid
-    columns only."""
-    Kqq = kr.cross_kernel(kernel_name, xq, xq, lengthscales, amp)
-    C = Kqq - V.T @ V
-    fantasy = _floor(var[None, :] - (C * C) / var[:, None])
+
+def wip_values(C, var_rows, var, y_std, use_std, n_valid=None):
+    """WIPV / WIPStd of the candidates whose rows of the pool covariance are
+    C (mc, m), var_rows their posterior variances: the mean over the pool
+    of g(var'(m | add c)) * y_std^p. ``n_valid``: integrate over the first
+    n_valid columns only."""
+    fantasy = _floor(var[None, :] - (C * C) / var_rows[:, None])
     if n_valid is not None:
         fantasy = fantasy[:, :n_valid]
     if use_std:
@@ -54,17 +56,28 @@ def wip_sweep(kernel_name, xq, V, var, lengthscales, amp, noise, y_std,
     return torch.mean(fantasy, dim=1) * y_std**2
 
 
+def wip_sweep(kernel_name, xq, V, var, lengthscales, amp, noise, y_std,
+              use_std, n_valid=None):
+    """WIPV / WIPStd for every candidate in the MC pool at once.
+
+    acq[c] = mean_m g(var'(m | add c)) * y_std^p, g = identity (WIPV, p=2)
+    or sqrt (WIPStd, p=1). ``n_valid``: integrate over the first n_valid
+    columns only."""
+    C = posterior_cov(kernel_name, xq, xq, V, V, lengthscales, amp)
+    return wip_values(C, var, var, y_std, use_std, n_valid)
+
+
 def wip_greedy_batch(kernel_name, xq, V, var, lengthscales, amp, noise,
-                     y_std, use_std, n_batch: int):
+                     y_std, use_std, n_batch: int, C=None):
     """Greedy batch of n_batch pool candidates by rank-1 downdates of the
-    (m, m) posterior covariance:
+    (m, m) posterior covariance ``C`` (computed here when None):
 
         var'(m)   = var(m)   - w_m^2,      w = C[i*, :] / sqrt(var(i*))
         C'(a, m)  = C(a, m)  - w_a w_m
 
     Returns (idx (n_batch,), acq_vals (n_batch,)) as device tensors."""
-    Kqq = kr.cross_kernel(kernel_name, xq, xq, lengthscales, amp)
-    C = Kqq - V.T @ V
+    if C is None:
+        C = posterior_cov(kernel_name, xq, xq, V, V, lengthscales, amp)
     scale = y_std if use_std else y_std**2
     floor = config.SAFE_NOISE_FLOOR
     idxs, vals = [], []

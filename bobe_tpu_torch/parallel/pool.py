@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import sys
 import time
 from typing import List, Optional, Tuple
 
@@ -541,10 +542,11 @@ def make_pool(kind: str = "auto", **kwargs) -> EvalPool:
     torch.distributed job), or 'auto': the distributed pool inside a job of
     more than one process, else the serial pool."""
     if kind == "auto":
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
+        # a process that never imported torch has no group (a
+        # device-server client imports none)
+        dist = sys.modules.get("torch.distributed")
+        if dist is not None and dist.is_available() \
+                and dist.is_initialized() and dist.get_world_size() > 1:
             return DistributedPool()
         return SerialPool()
     if kind == "serial":

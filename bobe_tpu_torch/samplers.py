@@ -21,8 +21,15 @@ starts its volume ledger at the log feasible fraction; the HMC targets are
 tempered as a whole, and a warm chain start that the retrained classifier
 now puts on the plateau rejects the warm path.
 
-The multi-device chain layout of the JAX package (``_maybe_shard_chains``,
-``_mesh_aligned_chains``) is not ported: the chain count is used as given.
+With a production mesh (parallel/mesh.py: two or more cards and
+``BOBE_TPU_MESH=1``) the samplers
+spread their work over its devices: nested sampling splits each proposal
+batch, NUTS runs its chains in groups, one per device, and the ensemble
+(whose chains share one adapted kernel) splits the evaluation of its target
+at every leapfrog step; the chain counts are rounded up to a multiple of
+the mesh (``_mesh_aligned_chains``). Every chain draws the same numbers on
+any layout: the layout changes where the chains run, and with the width of
+each batched GP evaluation its roundoff, which the dynamics amplify.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from .infer.nested import merge_runs, run_nested, run_nested_dynamic
 from .infer.nuts import run_chain
 from .models import gp as gpm
 from .models.classifiers import predict_proba_apply
+from .parallel.mesh import production_mesh, sharded_nuts, sharded_target
 from .utils.core import renormalise_log_weights, resample_equal
 from .utils.log import get_logger
 from .utils.seed import get_numpy_rng, new_torch_generator, split_generator
@@ -170,6 +178,8 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
 
     apply_fn, ctx = _gp_loglike(gp)
     loglike = lambda x: apply_fn(ctx, x)
+    # the proposal batches' GP evaluations split over the production mesh
+    ns_kwargs.setdefault("mesh", production_mesh(gp.device))
 
     live_x = live_logl = None
     logvol0, var_logvol0 = 0.0, 0.0
@@ -305,15 +315,18 @@ def get_hmc_settings(ndim, warmup_steps=None, num_samples=None, thinning=None):
     return warmup_steps, num_samples, thinning
 
 
-def _logprob_vg(gp, temp: float):
-    """``vg(z) -> (logp (C,), grad (C, d))``: the target density on R^d,
-    the logit-transformed Uniform(0, 1)^d prior plus the tempered GP mean,
-    with its gradient in closed form (models/gp.mean_value_and_grad_fn).
+def _logprob_target(gp, temp: float):
+    """(make_vg, ctx) of the target density on R^d: ``make_vg(ctx)`` is
+    ``vg(z) -> (logp (C,), grad (C, d))``, the logit-transformed
+    Uniform(0, 1)^d prior plus the tempered GP mean, with its gradient in
+    closed form (models/gp.mean_value_and_grad_fn). ``ctx`` holds the
+    device state (the GP's, and the classifier's parameters), so a replica
+    of it on another device builds the same target there.
 
     Over a classifier-gated GP the mean is ``minus_inf`` where the
     classifier says infeasible and its gradient there 0 (the gradient of
     the hard gate), leaving the Jacobian term."""
-    mean_vg = gpm.mean_value_and_grad_fn(gp.state, gp.cfg)
+    cfg = gp.cfg
     temp = float(temp)
     softplus = torch.nn.functional.softplus
     clf = getattr(gp, "_clf_ctx", None)
@@ -321,22 +334,60 @@ def _logprob_vg(gp, temp: float):
         proba = predict_proba_apply(gp.clf_type)
         thr, minus_inf = float(gp.probability_threshold), float(gp.minus_inf)
 
-    def vg(z):
-        nz = -z
-        x, x_neg = torch.sigmoid(z), torch.sigmoid(nz)
-        mean, g = mean_vg(x)
-        if clf is not None:
-            ok = proba(clf, x) >= thr
-            mean = torch.where(ok, mean, torch.full_like(mean, minus_inf))
-            g = g * ok[:, None].to(g.dtype)
-        # log|dx/dz| = -(softplus(z) + softplus(-z)): finite where the
-        # sigmoid saturates (log(x) + log1p(-x) is not); its gradient is
-        # sigmoid(-z) - sigmoid(z), and dx/dz = x sigmoid(-z)
-        log_jac = torch.sum(softplus(z) + softplus(nz), dim=-1)
-        return (mean / temp - log_jac,
-                torch.addcmul(x_neg - x, g, x * x_neg, value=1.0 / temp))
+    def make_vg(ctx):
+        state, clf_params = ctx
+        mean_vg = gpm.mean_value_and_grad_fn(state, cfg)
 
-    return vg
+        def vg(z):
+            nz = -z
+            x, x_neg = torch.sigmoid(z), torch.sigmoid(nz)
+            mean, g = mean_vg(x)
+            if clf_params is not None:
+                ok = proba(clf_params, x) >= thr
+                mean = torch.where(ok, mean, torch.full_like(mean, minus_inf))
+                g = g * ok[:, None].to(g.dtype)
+            # log|dx/dz| = -(softplus(z) + softplus(-z)): finite where the
+            # sigmoid saturates (log(x) + log1p(-x) is not); its gradient
+            # is sigmoid(-z) - sigmoid(z), and dx/dz = x sigmoid(-z)
+            log_jac = torch.sum(softplus(z) + softplus(nz), dim=-1)
+            return (mean / temp - log_jac,
+                    torch.addcmul(x_neg - x, g, x * x_neg, value=1.0 / temp))
+
+        return vg
+
+    return make_vg, (gp.state, clf)
+
+
+def _logprob_vg(gp, temp: float):
+    """The target's ``vg`` on the GP's own device (:func:`_logprob_target`)."""
+    make_vg, ctx = _logprob_target(gp, temp)
+    return make_vg(ctx)
+
+
+def _mesh_aligned_chains(num_chains: int, device) -> int:
+    """The chain count rounded up to a multiple of the production mesh's
+    size, so that every device of the mesh runs an equal share; extra
+    chains only enlarge the pool."""
+    mesh = production_mesh(device)
+    if mesh is None or num_chains % len(mesh) == 0:
+        return int(num_chains)
+    return int(-(-num_chains // len(mesh)) * len(mesh))
+
+
+def _maybe_shard_chains(sampler, make_vg, ctx, init_z, gen, **kw):
+    """``sampler`` (infer/nuts.run_chain or infer/ehmc.run_ensemble) on the
+    target ``make_vg(ctx)`` from ``init_z``, with its chains over the
+    production mesh when one is active and divides them. NUTS chains are
+    independent: they run in groups, one per device, each chain on its own
+    generator (``gen``: the list of them). The ensemble adapts one kernel
+    over all its chains (``gen``: its one generator): every leapfrog step's
+    evaluation of the target is split over the devices."""
+    mesh = production_mesh(init_z.device)
+    if mesh is None or init_z.shape[0] % len(mesh) != 0:
+        return sampler(make_vg(ctx), init_z, gen, **kw)
+    if sampler is run_chain:
+        return sharded_nuts(make_vg, ctx, init_z, gen, mesh, **kw)
+    return sampler(sharded_target(make_vg, ctx, mesh), init_z, gen, **kw)
 
 
 def _plateau_frac_ok(vg, warm_state, gp, temp) -> float:
@@ -417,16 +468,16 @@ def sample_gp_nuts(gp, np_rng=None, generator: Optional[torch.Generator] = None,
     warmup_steps, num_samples, thinning = get_hmc_settings(
         ndim=gp.ndim, **{k: v for k, v in kwargs.items()
                          if k in ("warmup_steps", "num_samples", "thinning")})
-    num_chains = int(num_chains)
+    num_chains = _mesh_aligned_chains(int(num_chains), gp.device)
     np_rng = np_rng if np_rng is not None else get_numpy_rng()
     gen = generator if generator is not None else new_torch_generator(gp.device)
-    vg = _logprob_vg(gp, temp)
+    make_vg, ctx = _logprob_target(gp, temp)
     gens = split_generator(gen, num_chains)
     # default_kind="nuts": warm states without a 'kind' field are NUTS's
     warm_ok = _warm_state_matches(warm_state, "nuts", num_chains, gp.ndim,
                                   dense_mass, temp, default_kind="nuts")
     if warm_ok and getattr(gp, "_clf_ctx", None) is not None and \
-            _plateau_frac_ok(vg, warm_state, gp, temp) < 1.0:
+            _plateau_frac_ok(_logprob_vg(gp, temp), warm_state, gp, temp) < 1.0:
         log.debug("warm NUTS rejected: a cached chain end now falls in "
                   "the classifier's infeasible region")
         warm_ok = False
@@ -435,10 +486,11 @@ def sample_gp_nuts(gp, np_rng=None, generator: Optional[torch.Generator] = None,
     if warm_ok:
         z0 = torch.as_tensor(np.array(warm_state["last_z"]),
                              dtype=config.DTYPE, device=gp.device)
-        zs, _, diag = run_chain(vg, z0, gens,
-                                num_warmup=max(32, int(warmup_steps) // 4),
-                                warm=_warm_kernel_tuple(warm_state, gp.device),
-                                adapt_mass=False, **common)
+        zs, _, diag = _maybe_shard_chains(
+            run_chain, make_vg, ctx, z0, gens,
+            num_warmup=max(32, int(warmup_steps) // 4),
+            warm=_warm_kernel_tuple(warm_state, gp.device), adapt_mass=False,
+            **common)
         accept = float(torch.mean(diag["mean_accept"]))
         div_rate = float(torch.sum(diag["n_divergent"])) / max(
             1, num_chains * int(num_samples))
@@ -447,8 +499,9 @@ def sample_gp_nuts(gp, np_rng=None, generator: Optional[torch.Generator] = None,
                       f"div={div_rate:.3f}); falling back to cold warmup")
             warm_ok = False
     if not warm_ok:
-        zs, _, diag = run_chain(vg, _cold_logit_inits(gp, num_chains, np_rng),
-                                gens, num_warmup=int(warmup_steps), **common)
+        zs, _, diag = _maybe_shard_chains(
+            run_chain, make_vg, ctx, _cold_logit_inits(gp, num_chains, np_rng),
+            gens, num_warmup=int(warmup_steps), **common)
     out = _bundle_samples(gp, zs, diag, "nuts", num_chains, dense_mass, temp)
     out["diagnostics"].update(n_leapfrog=diag["n_leapfrog"], warm=warm_ok)
     log.debug(f"NUTS: mean accept="
@@ -480,12 +533,13 @@ def sample_gp_ensemble(gp, np_rng=None,
     acceptance below 0.5 or a divergence rate above 0.05 rejects it for a
     cold start (random points and the incumbent, the full warmup)."""
     nc, kept, cold_warmup = get_ehmc_settings(
-        gp.ndim, num_chains=num_chains, num_samples=kwargs.get("num_samples"),
+        gp.ndim, num_chains=_mesh_aligned_chains(int(num_chains), gp.device),
+        num_samples=kwargs.get("num_samples"),
         warmup_steps=kwargs.get("warmup_steps"))
     thinning = int(kwargs.get("thinning") or 2)
     np_rng = np_rng if np_rng is not None else get_numpy_rng()
     gen = generator if generator is not None else new_torch_generator(gp.device)
-    vg = _logprob_vg(gp, temp)
+    make_vg, ctx = _logprob_target(gp, temp)
     common = dict(num_samples=kept, thinning=thinning,
                   dense_mass=bool(dense_mass), num_leapfrog=int(num_leapfrog))
     warm_ok = _warm_state_matches(warm_state, "ehmc", nc, gp.ndim,
@@ -493,7 +547,7 @@ def sample_gp_ensemble(gp, np_rng=None,
     if warm_ok and getattr(gp, "_clf_ctx", None) is not None:
         # the lockstep ensemble tolerates a few stranded chains (they
         # re-enter during the re-adaptation): 0.9 where NUTS needs all
-        frac_ok = _plateau_frac_ok(vg, warm_state, gp, temp)
+        frac_ok = _plateau_frac_ok(_logprob_vg(gp, temp), warm_state, gp, temp)
         if frac_ok < 0.9:
             log.debug(f"warm ensemble rejected: {1 - frac_ok:.0%} of chain "
                       "ends now infeasible under the retrained classifier")
@@ -501,8 +555,8 @@ def sample_gp_ensemble(gp, np_rng=None,
     if warm_ok:
         z0 = torch.as_tensor(np.array(warm_state["last_z"]),
                              dtype=config.DTYPE, device=gp.device)
-        zs, _, diag = run_ensemble(
-            vg, z0, gen, num_warmup=24,
+        zs, _, diag = _maybe_shard_chains(
+            run_ensemble, make_vg, ctx, z0, gen, num_warmup=24,
             warm=_warm_kernel_tuple(warm_state, gp.device), adapt_mass=False,
             **common)
         accept = float(diag["mean_accept"])
@@ -512,8 +566,9 @@ def sample_gp_ensemble(gp, np_rng=None,
                       f"div={div_rate:.3f}); cold restart")
             warm_ok = False
     if not warm_ok:
-        zs, _, diag = run_ensemble(vg, _cold_logit_inits(gp, nc, np_rng), gen,
-                                   num_warmup=cold_warmup, **common)
+        zs, _, diag = _maybe_shard_chains(
+            run_ensemble, make_vg, ctx, _cold_logit_inits(gp, nc, np_rng), gen,
+            num_warmup=cold_warmup, **common)
     out = _bundle_samples(gp, zs, diag, "ehmc", nc, dense_mass, temp)
     out["diagnostics"].update(n_leapfrog=diag["n_leapfrog"], warm=warm_ok)
     log.debug(f"EHMC: accept={float(out['diagnostics']['mean_accept']):.3f}, "

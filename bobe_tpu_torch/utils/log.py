@@ -24,10 +24,11 @@ _configured = False
 
 
 def process_index() -> int:
-    """Index of this process in the distributed job (0 if single-process)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
+    """Index of this process in the distributed job (0 if single-process).
+    A process that never imported torch has no group (a device-server
+    client imports none)."""
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
         return int(dist.get_rank())
     return int(os.environ.get("RANK", 0))
 

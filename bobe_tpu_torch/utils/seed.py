@@ -1,7 +1,8 @@
 """Global seed / random-number registry.
 
 One global seed feeds Python's ``random``, a NumPy ``Generator`` and a chain
-of ``torch.Generator`` seeds. Where the JAX package splits a PRNG key, the
+of ``torch.Generator`` seeds (torch is imported by the functions that make
+generators, so a client of the device server seeds without it). Where the JAX package splits a PRNG key, the
 port spawns a child of a ``numpy.random.SeedSequence`` and seeds a fresh
 ``torch.Generator`` on the device that will draw from it, so every sampler
 call gets its own independent, reproducible stream. A generator is never
@@ -15,7 +16,6 @@ import os
 import random as _pyrandom
 
 import numpy as np
-import torch
 
 from .log import get_logger, process_index
 
@@ -65,9 +65,11 @@ def get_numpy_rng() -> np.random.Generator:
     return _np_rng
 
 
-def new_torch_generator(device=None) -> torch.Generator:
+def new_torch_generator(device=None) -> "torch.Generator":
     """A fresh generator on ``device``, seeded from the next child of the
     global seed sequence (the counterpart of ``get_new_jax_key``)."""
+    import torch
+
     _ensure()
     child = _seed_seq.spawn(1)[0]
     seed = int(child.generate_state(1, dtype=np.uint64)[0] >> np.uint64(1))
@@ -79,6 +81,8 @@ def new_torch_generator(device=None) -> torch.Generator:
 def split_generator(gen: torch.Generator, n: int) -> list:
     """``n`` independent generators on ``gen``'s device, seeded from draws
     of ``gen`` (the counterpart of ``jax.random.split``)."""
+    import torch
+
     seeds = torch.randint(0, 2**62, (n,), generator=gen,
                           device=gen.device).tolist()
     out = []

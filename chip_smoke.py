@@ -99,10 +99,31 @@ non-zero):
    cleanly after EXIT;
 17. the cold start, in a fresh process from a copy of the package in a
    temporary directory: the imports, CUDA's start, the full nvcc build, the
-   first GP fit and NS at N=1024, d=8 and a second of each.
+   first GP fit and NS at N=1024, d=8 and a second of each;
+18. the device server on the card (python -m bobe_tpu_torch.server
+   --device cuda, warming d=2 at boot): phase 13's rosenbrock LogEI cut to
+   40 evaluations from two fresh client processes in turn (BOBE_TPU_SERVER
+   set: each loads no torch for the run, hides the card, and counts its
+   own likelihood calls), in this process on the card and in a cold
+   process without a server; the clients' best value and point equal the
+   in-process run's at rtol 1e-9, and the mean at 5 points of client 1's GP
+   (rebuilt on the CPU with the server's factor) the card's GP's within
+   1e-9 of the largest of them;
+   a run with a bad acquisition raises in the client and leaves the server
+   up; shutdown is acknowledged; each process's wall split into imports
+   and run, and the server's kernel launches;
+19. the mesh (bobe_tpu_torch/parallel/mesh.py) on the card named twice (and
+   on every card, the opt-in production mesh, when there are two or more),
+   on phase 5's GP: sharded
+   predict at 1,000 points (the mean at rtol 1e-12, the variance within
+   1e-12 of its scale) and the WIPStd sweep over an uneven pool of 257 (rtol
+   1e-8, the same best candidate) against the unsharded calls, 8 NUTS
+   chains against the same chains run in the mesh's groups bit for bit and
+   against the full batch's means within 5 standard errors, and no Gram
+   launch added by the split.
 
-The kernels' launch counts are set to 0 just before each of phases 4 to 16
-and read just after; a phase that did not launch the forward kernel, phase
+The kernels' launch counts are set to 0 just before each of phases 4 to 16,
+18 and 19 and read just after; a phase that did not launch the forward kernel, phase
 6 without a backward launch, or phases 6b and 12 without a per-lane forward
 and a dL/dx launch, fails. The script prints the card's name
 and power limit, one JSON line describing every kernel, and as its last
@@ -2551,6 +2572,430 @@ def _cold_start():
     print(json.dumps({"cold_start": out}), flush=True)
 
 
+# ---- phase 18: the device server on the card. Phase 13's rosenbrock LogEI
+# cut to 40 evaluations, run by two fresh client processes in turn (each
+# with BOBE_TPU_SERVER set, so the package loads no torch there and hides
+# the card), once in this process on the card and once in a fresh process
+# without a server (phase 17's cold measure); the server warms d=2 at boot
+# (--prewarm-d 2 at 64 points)
+SERVER_RUN = dict(ROSEN_RUN, max_evals=EI_RUN_EVALS)
+# the five points where client 1's GP, rebuilt on the CPU with the server's
+# factor and alphas, is held to the in-process GP on the card; client 2 holds
+# the GP state as it came over the wire and never imports torch. The two
+# devices round the cross-kernel row and its product with alpha apart, and
+# |alpha| magnifies that: a reading on the H100 was 3.4e-6 at
+# most, 8.3e-11 of the largest of the five means but 9.5e-8 of a mean 3,400
+# times smaller. So the means are held within SERVER_RTOL of the largest.
+SERVER_MEAN_X = [[0.1 + 0.2 * i, 0.9 - 0.2 * i] for i in range(5)]
+SERVER_STATE_KEYS = ("train_x", "train_y", "lengthscales", "alphas")
+SERVER_RTOL = 1e-9
+# ---- phase 19: the mesh on one card named twice, on phase 5's N=1024, d=8
+# GP (the JAX package's fitted hyperparameters): 1,000 query points (not a
+# multiple of the mesh, so padding runs), an uneven WIPStd pool of 257
+# points, 8 NUTS chains (64 warmup and 32 kept transitions of 2). The
+# predicted mean is held at rtol 1e-12; the variance, amp + noise - sum V^2,
+# carries an absolute roundoff of its prior scale amp * y_std^2 that depends
+# on the batch's width (the solve's blocking), so it is held at 1e-12 of
+# that scale; the WIPStd values divide by variances down to 3e-9 of that
+# scale, which magnifies the same roundoff: they are held at rtol 1e-8
+# (read: 3.3e-9 on the card, 2.0e-10 on the CPU) with the same best
+# candidate. Predictions split in the mesh's chunks one after another on
+# one device must equal the sharded ones bit for bit.
+MESH_PREDICT_N, MESH_POOL_N, MESH_CHAINS = 1000, 257, 8
+MESH_NUTS = dict(num_warmup=64, num_samples=32, thinning=2, max_depth=6)
+MESH_RTOL, MESH_WIP_RTOL = 1e-12, 1e-8
+# NUTS over the mesh draws what it draws unsharded, but the GP mean of half
+# the chains is a product of another width, whose roundoff the trajectories
+# amplify until the chains part (6.2 in logit space after 96 transitions,
+# on the H100): against the full batch the two pools are held
+# statistically, every dimension's means within MESH_NUTS_Z standard errors
+# of their difference (from the 128 kept samples each, as if independent)
+MESH_NUTS_Z = 5.0
+
+
+def _rosen_counted():
+    """The rosenbrock log-likelihood with a call counter."""
+    from bobe_tpu_torch.models import toys
+
+    calls = [0]
+
+    def rosen(x):
+        calls[0] += 1
+        return toys.rosenbrock(x)
+
+    return rosen, calls
+
+
+def _rosen_bobe(loglikelihood, **kw):
+    # the package's BOBE, as a user imports it: in a client process (with
+    # BOBE_TPU_SERVER set) the client's, which loads no torch
+    from bobe_tpu_torch import BOBE
+    from bobe_tpu_torch.models import toys
+
+    return BOBE(loglikelihood=loglikelihood,
+                param_list=toys.rosenbrock_names,
+                param_bounds=toys.rosenbrock_bounds,
+                likelihood_name="rosenbrock", n_sobol_init=16, seed=0,
+                save=False, verbosity="WARNING", **kw)
+
+
+def _server_client(rebuild):
+    """The body of a phase 18 client process (BOBE_TPU_SERVER set): phase
+    18's run through the server, its wall split into imports and run, what
+    the process loaded, and the GP: rebuilt on the CPU and its mean at 5
+    points (``rebuild``), or its state as it came over the wire, with torch
+    never imported."""
+    import os
+
+    t0 = time.perf_counter()
+    import bobe_tpu_torch  # noqa: F401
+    t_import = time.perf_counter() - t0
+    rosen, calls = _rosen_counted()
+    t1 = time.perf_counter()
+    res = _rosen_bobe(rosen).run(**SERVER_RUN)
+    t_run = time.perf_counter() - t1
+    out = {"import_s": t_import, "run_s": t_run,
+           "torch_loaded": "torch" in sys.modules,
+           "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "calls": calls[0], "best_val": float(res["best_val"]),
+           "best_pt": [float(v) for v in res["best_pt"]],
+           "termination": res["termination_reason"],
+           "gp_state": {k: res.gp_state[k].tolist() for k in SERVER_STATE_KEYS}}
+    if rebuild:
+        t2 = time.perf_counter()
+        gp = res["gp"]  # rebuilt on the CPU: imports torch here
+        out["gp_rebuild_s"] = time.perf_counter() - t2
+        import torch
+
+        out["gp_device"] = str(gp.device)
+        out["gp_mean"] = gp.predict_mean_batched(SERVER_MEAN_X).tolist()
+        out["cuda_initialized"] = torch.cuda.is_initialized()
+    out["torch_at_exit"] = "torch" in sys.modules
+    print(json.dumps({"server_client": out}), flush=True)
+
+
+def _server_inproc(device):
+    """The body of phase 18's cold process: the same run in process on
+    ``device``, no server."""
+    t0 = time.perf_counter()
+    import torch
+    import bobe_tpu_torch  # noqa: F401
+    t_import = time.perf_counter() - t0
+    rosen, calls = _rosen_counted()
+    t1 = time.perf_counter()
+    res = _rosen_bobe(rosen, device=device).run(**SERVER_RUN)
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    print(json.dumps({"server_inproc": {
+        "import_s": t_import, "run_s": time.perf_counter() - t1,
+        "calls": calls[0], "best_val": float(res["best_val"])}}),
+        flush=True)
+
+
+def _child(args, env=None, timeout=600):
+    """``python chip_smoke.py *args`` from this script's directory; returns
+    (the JSON of its last line, its wall in seconds)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "chip_smoke.py", *args], cwd=here,
+                         env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.time() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"chip_smoke.py {' '.join(args)} failed:\n"
+                             f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1]), wall
+
+
+def phase_server(device):
+    """The device server on the card (bobe_tpu_torch/server.py, client.py):
+    boot, two client processes, the run in process and in a cold process,
+    a failing run, shutdown."""
+    import os
+
+    import numpy as np
+
+    from bobe_tpu_torch import client
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sock = os.path.join(tmp, "server.sock")
+        env = dict(os.environ)
+        for k in ("BOBE_TPU_SERVER", "BOBE_TPU_CLIENT_PINNED"):
+            env.pop(k, None)
+        env["BOBE_TPU_SERVER_ROLE"] = "server"
+        log_path = os.path.join(tmp, "server.log")
+        t0 = time.time()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "bobe_tpu_torch.server", "--device",
+                 device, "--socket", sock, "--idle-timeout", "600",
+                 "--prewarm-d", "2", "--prewarm-max-n", "64"],
+                cwd=here, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            pong = None
+            while pong is None:
+                if proc.poll() is not None or time.time() - t0 > 300:
+                    raise AssertionError(
+                        "phase 18: the server did not come up:\n"
+                        + open(log_path).read()[-3000:])
+                time.sleep(0.2)
+                pong = client.ping(sock)
+            out["server_boot_s"] = time.time() - t0
+            if pong.get("package") != "bobe_tpu_torch" or \
+                    not pong.get("device", "").startswith(device):
+                raise AssertionError(f"phase 18: unexpected pong {pong}")
+            before = pong["launches"]
+            cenv = dict(os.environ, BOBE_TPU_SERVER=sock)
+            for k in ("BOBE_TPU_SERVER_ROLE", "CUDA_VISIBLE_DEVICES",
+                      "BOBE_TPU_CLIENT_PINNED"):
+                cenv.pop(k, None)
+            clients = []
+            for mode in ("rebuild", "state"):
+                res, wall = _child(["--server-client", mode], env=cenv)
+                res = res["server_client"]
+                res["process_wall_s"] = wall
+                clients.append(res)
+            after = client.ping(sock)
+            out["server_launches"] = {
+                k: after["launches"][k] - before[k] for k in before}
+            # the same run in this process on the card
+            rosen, calls = _rosen_counted()
+            t1 = time.time()
+            local = _rosen_bobe(rosen, device=device).run(**SERVER_RUN)
+            out["inproc_run_s"] = time.time() - t1
+            n_local = calls[0]
+            # a failing run leaves the server up
+            try:
+                _rosen_bobe(_rosen_counted()[0], server=sock).run(
+                    acq="not_an_acquisition")
+                raise AssertionError("phase 18: a run with a bad acq did "
+                                     "not raise")
+            except RuntimeError as e:
+                if "device-server run failed" not in str(e):
+                    raise
+            if client.ping(sock) is None:
+                raise AssertionError("phase 18: the server died with the "
+                                     "failed run")
+            cold, cold_wall = _child(["--server-inproc", device], env={
+                k: v for k, v in cenv.items() if k != "BOBE_TPU_SERVER"})
+            cold = cold["server_inproc"]
+            cold["process_wall_s"] = cold_wall
+            if not client.shutdown(sock):
+                raise AssertionError("phase 18: shutdown not acknowledged")
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # checks: the clients loaded no torch and hid the card, the likelihood
+    # ran in them, and every run equals the in-process one
+    local_state = local["gp"].state_dict()
+    card_mean = local["gp"].predict_mean_batched(SERVER_MEAN_X).cpu().numpy()
+    mean_scale = float(np.max(np.abs(card_mean)))
+    close = lambda a, b: np.allclose(a, b, rtol=SERVER_RTOL, atol=0)
+    for i, c in enumerate(clients):
+        bad = []
+        if c["torch_loaded"] or c["cuda_visible_devices"] != "":
+            bad.append("the client loaded torch for its run or could reach "
+                       "the card")
+        if i == 0 and (c["cuda_initialized"] or c["gp_device"] != "cpu"):
+            bad.append("the rebuilt GP is not on the CPU, or CUDA started")
+        if i == 1 and c["torch_at_exit"]:
+            bad.append("the client imported torch without reading the GP")
+        if c["calls"] != n_local:
+            bad.append(f"{c['calls']} likelihood calls, in process "
+                       f"{n_local}")
+        if not close(c["best_val"], local["best_val"]) or \
+                not close(c["best_pt"], local["best_pt"]):
+            bad.append(f"best {c['best_val']!r} at {c['best_pt']}, in "
+                       f"process {local['best_val']!r} at "
+                       f"{list(local['best_pt'])}")
+        for k in SERVER_STATE_KEYS:
+            if not close(np.asarray(c["gp_state"][k]), local_state[k]):
+                bad.append(f"the GP state's {k} differs")
+        if "gp_mean" in c and not np.allclose(
+                c["gp_mean"], card_mean, rtol=0,
+                atol=SERVER_RTOL * mean_scale):
+            bad.append(f"rebuilt GP mean {c['gp_mean']} != the card's "
+                       f"{card_mean.tolist()}")
+        if bad:
+            raise AssertionError(f"phase 18 client {i + 1}: " + "; ".join(bad))
+    if not np.allclose(cold["best_val"], local["best_val"], rtol=SERVER_RTOL,
+                       atol=0) or cold["calls"] != n_local:
+        raise AssertionError(f"phase 18: the cold process's run differs: "
+                             f"{cold}")
+    # the CPU's plain versions count no launch
+    if device.startswith("cuda") and out["server_launches"]["gram_masked"] <= 0:
+        raise AssertionError("phase 18: the server's runs launched no Gram "
+                             "kernel")
+    out.update(clients=clients, cold=cold, calls=n_local,
+               best_val=float(local["best_val"]),
+               mean_rel_card_vs_rebuilt=float(np.max(np.abs(
+                   np.asarray(clients[0]["gp_mean"]) - card_mean)
+                   / np.abs(card_mean))),
+               mean_scaled_card_vs_rebuilt=float(np.max(np.abs(
+                   np.asarray(clients[0]["gp_mean"]) - card_mean))
+                   / mean_scale))
+    for i, c in enumerate(clients):
+        gp_note = (f"the GP's rebuild on the CPU, torch's import with it, "
+                   f"{c['gp_rebuild_s']:.2f} s" if "gp_rebuild_s" in c else
+                   "no GP rebuild: torch never imported")
+        print(f"[phase 18] client {i + 1}: process wall "
+              f"{c['process_wall_s']:.2f} s = imports {c['import_s']:.3f} s "
+              f"+ run {c['run_s']:.2f} s (+ {gp_note}, and the "
+              f"interpreter); torch loaded by the run: {c['torch_loaded']}, "
+              f"at exit: {c['torch_at_exit']}, CUDA_VISIBLE_DEVICES="
+              f"{c['cuda_visible_devices']!r}, CUDA initialised: "
+              f"{c.get('cuda_initialized', False)}; {c['calls']} likelihood "
+              f"calls in the client; best {c['best_val']:.12g}")
+    print(f"[phase 18] cold process without a server: wall "
+          f"{cold['process_wall_s']:.2f} s = imports {cold['import_s']:.3f} "
+          f"s + run {cold['run_s']:.2f} s; in this process (warm): run "
+          f"{out['inproc_run_s']:.2f} s; server boot (torch, CUDA, the "
+          f"library, one Gram launch, the d=2 prewarm) "
+          f"{out['server_boot_s']:.2f} s")
+    print(f"[phase 18] {len(clients)} client runs equal the in-process run "
+          f"at rtol {SERVER_RTOL} (best value, best point, the GP state over "
+          f"the wire; client 1's GP rebuilt on the CPU against the "
+          f"in-process GP on the card at 5 points within {SERVER_RTOL} of "
+          f"the largest mean: {out['mean_scaled_card_vs_rebuilt']:.2e} of "
+          f"it, {out['mean_rel_card_vs_rebuilt']:.2e} relative at most); "
+          f"the server's "
+          f"kernel launches over the two runs: "
+          + json.dumps(out["server_launches"]))
+    return out
+
+
+def phase_mesh(device):
+    """The mesh (bobe_tpu_torch/parallel/mesh.py) on the card named twice,
+    and on every card when there are two or more: sharded predict, WIPStd
+    sweep and NUTS against the unsharded calls."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from bobe_tpu_torch import acquisition as acq
+    from bobe_tpu_torch import samplers
+    from bobe_tpu_torch.infer.nuts import run_chain
+    from bobe_tpu_torch.models import gp as gpm
+    from bobe_tpu_torch.ops import kernels as kr
+    from bobe_tpu_torch.parallel import mesh as pm
+    from bobe_tpu_torch.utils.seed import split_generator
+
+    gp = build_gp_1024(device, JAX_LOG_PARAMS)
+    rng = np.random.default_rng(19)
+    xq = torch.as_tensor(rng.uniform(size=(MESH_PREDICT_N, NDIM)),
+                         device=device)
+    pool = torch.as_tensor(rng.uniform(size=(MESH_POOL_N, NDIM)),
+                           device=device)
+    init = torch.as_tensor(rng.normal(size=(MESH_CHAINS, NDIM)),
+                           device=device)
+    make_vg, ctx = samplers._logprob_target(gp, 1.0)
+    gens = lambda: split_generator(
+        torch.Generator(device=device).manual_seed(19), MESH_CHAINS)
+    sync = (torch.cuda.synchronize if device.startswith("cuda")
+            else (lambda: None))
+    rel = lambda a, b: float(torch.max(torch.abs(a - b) / torch.abs(b)))
+
+    sync()
+    t0 = time.time()
+    n0 = kr.gram_masked.launches
+    mean_u, var_u = gpm.predict(gp.state, gp.cfg, xq)
+    chunked = [gpm.predict(gp.state, gp.cfg, c) for c in torch.chunk(xq, 2)]
+    acq_u = acq._wip_sweep_core(gp, pool, True)[0]
+    zs_u, _, diag_u = run_chain(make_vg(ctx), init, gens(), **MESH_NUTS)
+    sync()
+    n_unsharded = kr.gram_masked.launches - n0
+    t_unsharded = time.time() - t0
+    # the chains in the mesh's groups, unsharded (not timed)
+    half = MESH_CHAINS // 2
+    groups = [run_chain(make_vg(ctx), init[r], gens()[r], **MESH_NUTS)[0]
+              for r in (slice(0, half), slice(half, None))]
+    meshes = [("cuda:0 named twice", pm.get_mesh([device, device]))]
+    if torch.cuda.device_count() >= 2:
+        # the production mesh is opt-in (BOBE_TPU_MESH=1)
+        os.environ["BOBE_TPU_MESH"] = "1"
+        try:
+            prod = pm.production_mesh(device)
+        finally:
+            os.environ.pop("BOBE_TPU_MESH")
+        meshes.append((f"production mesh of {torch.cuda.device_count()} "
+                       "cards", prod))
+    else:
+        print("[phase 19] one card on this host: the mesh runs on cuda:0 "
+              "named twice (a run across two cards needs a host with two)")
+    out = {"unsharded_s": t_unsharded}
+    for label, mesh in meshes:
+        t0 = time.time()
+        n0 = kr.gram_masked.launches
+        mean_s, var_s = pm.sharded_predict(gp, xq, mesh)
+        acq_s = pm.sharded_wip_sweep(gp, pool, True, mesh)
+        zs_s, _, diag_s = pm.sharded_nuts(make_vg, ctx, init, gens(), mesh,
+                                          **MESH_NUTS)
+        sync()
+        n_sharded = kr.gram_masked.launches - n0
+        wall = time.time() - t0
+        var_scale = float(torch.exp(gp.state.log_amp) * gp.state.y_std ** 2)
+        errs = {"predict_mean": rel(mean_s, mean_u),
+                "predict_var": float(torch.max(torch.abs(var_s - var_u)))
+                / var_scale,
+                "predict_var_rel": rel(var_s, var_u),
+                "wip_sweep": rel(acq_s, acq_u)}
+        bad = [f"{k} {errs[k]:.2e} (limit {lim})" for k, lim in (
+            ("predict_mean", MESH_RTOL), ("predict_var", MESH_RTOL),
+            ("wip_sweep", MESH_WIP_RTOL)) if not errs[k] <= lim]
+        if int(torch.argmin(acq_s)) != int(torch.argmin(acq_u)):
+            bad.append("the WIPStd sweep's best candidate differs")
+        if len(mesh) == 2 and not (
+                torch.equal(mean_s, torch.cat([c[0] for c in chunked]))
+                and torch.equal(var_s, torch.cat([c[1] for c in chunked]))):
+            bad.append("predictions differ from the same chunks unsharded")
+        if mean_s.shape != (MESH_PREDICT_N,) or \
+                acq_s.shape != (MESH_POOL_N,):
+            bad.append("shapes")
+        grouped = torch.cat(groups) if len(mesh) == 2 else None
+        if grouped is not None and not torch.equal(zs_s, grouped):
+            bad.append("NUTS chains differ from the same chains run in the "
+                       "mesh's groups")
+        chain_diff = float(torch.max(torch.abs(zs_s - zs_u)))
+        xs_s = torch.sigmoid(zs_s).reshape(-1, NDIM)
+        xs_u = torch.sigmoid(zs_u).reshape(-1, NDIM)
+        gap = torch.abs(xs_s.mean(0) - xs_u.mean(0))
+        se = torch.sqrt((xs_s.var(0) + xs_u.var(0)) / xs_s.shape[0])
+        moments, z_max = float(gap.max()), float((gap / se).max())
+        if not z_max <= MESH_NUTS_Z:
+            bad.append(f"NUTS means differ by {z_max:.2f} standard errors")
+        if n_sharded != n_unsharded:
+            bad.append(f"forward Gram launches {n_sharded} sharded, "
+                       f"{n_unsharded} unsharded")
+        if bad:
+            raise AssertionError(f"phase 19 ({label}): " + "; ".join(bad))
+        print(f"[phase 19] {label}: predict at {MESH_PREDICT_N} points "
+              f"(padded to {len(mesh) * -(-MESH_PREDICT_N // len(mesh))}) "
+              f"from unsharded: mean {errs['predict_mean']:.1e} relative, "
+              f"var {errs['predict_var']:.1e} of its scale "
+              f"({errs['predict_var_rel']:.1e} relative), limits "
+              f"{MESH_RTOL}; WIPStd sweep over an uneven pool of "
+              f"{MESH_POOL_N} {errs['wip_sweep']:.1e} relative (limit "
+              f"{MESH_WIP_RTOL}); NUTS {MESH_CHAINS} chains equal the "
+              f"same chains run in the mesh's groups bit for bit, "
+              f"{chain_diff:.1e} from the full batch (the batch width's "
+              f"roundoff, amplified), means {moments:.4f} apart "
+              f"({z_max:.2f} standard errors, limit {MESH_NUTS_Z}); forward "
+              f"Gram launches {n_sharded} (unsharded {n_unsharded}); "
+              f"{wall:.2f} s sharded, {t_unsharded:.2f} s unsharded")
+        out[label] = dict(errs, nuts_chain_diff=chain_diff,
+                          nuts_mean_diff=moments, nuts_mean_z=z_max,
+                          wall_s=wall,
+                          launches=n_sharded)
+    return out
+
+
 def main():
     import torch
 
@@ -2609,7 +3054,9 @@ def main():
                        ("13", lambda: phase_ei("cuda")),
                        ("14", lambda: phase_resume_pool("cuda")),
                        ("15", lambda: phase_cobaya("cuda")),
-                       ("16", lambda: phase_distributed("cuda"))):
+                       ("16", lambda: phase_distributed("cuda")),
+                       ("18", lambda: phase_server("cuda")),
+                       ("19", lambda: phase_mesh("cuda"))):
         for c in counters:
             c.launches = 0
         kr.gram_masked.launches_lane_x = 0
@@ -2679,5 +3126,9 @@ if __name__ == "__main__":
         _dist_worker(int(sys.argv[2]))
     elif sys.argv[1:] == ["--cold-start"]:
         _cold_start()
+    elif sys.argv[1:2] == ["--server-client"]:
+        _server_client(sys.argv[2] == "rebuild")
+    elif sys.argv[1:2] == ["--server-inproc"]:
+        _server_inproc(sys.argv[2])
     else:
         sys.exit(main())

@@ -3,9 +3,9 @@ default EHMC MC pool, with ``mc_points_method="NS"`` and ``"NUTS"``, and a
 run without a successful NS that falls back to final NUTS samples, on a 2-d
 Gaussian toy with an analytic evidence; a classifier-gated run
 (``use_clf=True``) on a 2-d toy with a failure region that ends on the
-final dynamic NS (``do_final_ns=True``); and every branch the port has not
-reached raising ``NotImplementedError`` with its ROADMAP item instead of
-running as something else; the GP options reaching BOBE's GP.
+final dynamic NS (``do_final_ns=True``); the constructor branch that once
+raised (the device server) now building a client that touches no device;
+the GP options reaching BOBE's GP.
 
 These runs are small-budget counterparts of tests/test_bo_2d.py's with a
 loose threshold, checked against the analytic logZ.
@@ -73,9 +73,21 @@ def test_slice_end_to_end_on_a_gaussian(tmp_path):
     ({"server": "/tmp/bobe.sock"}, "server"),
 ])
 def test_unported_construction_branches_raise(tmp_path, init_kw, item):
-    with pytest.raises(NotImplementedError) as err:
-        _bobe(tmp_path, **init_kw)
-    assert config.ROADMAP_ITEMS[item] in str(err.value)
+    """The branches that raised NotImplementedError are ported: nothing
+    raises it, and ``server=`` builds a device-server client
+    (client.ServerBOBE; tests/test_torch_server.py runs it) whose
+    constructor captures its arguments and sets up nothing on a device."""
+    from bobe_tpu_torch.client import ServerBOBE
+
+    assert not hasattr(config, "ROADMAP_ITEMS")
+    assert not hasattr(config, "not_ported")
+    bobe = _bobe(tmp_path, **init_kw)
+    assert isinstance(bobe, ServerBOBE)
+    assert bobe._server_socket == init_kw[item]
+    assert bobe._server_init["seed"] == 5
+    assert bobe._server_init["device"] == "cpu"
+    assert bobe.gp is None and not hasattr(bobe, "device")
+    assert not os.path.exists(os.path.join(str(tmp_path), "gauss_port_gp.npz"))
 
 
 def _check_gaussian_run(results, logz_true):

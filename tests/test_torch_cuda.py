@@ -359,3 +359,102 @@ def test_warp_fit_on_card(cuda):
     f_cpu = -tgp.GP(train_x=x, train_y=y, noise=1e-8, input_warp=True,
                     device="cpu").fit(x0=x0, maxiter=100)["mll"]
     assert abs(f_card - f_cpu) <= 1e-6 * abs(f_cpu), (f_card, f_cpu)
+
+
+@pytest.mark.cuda
+def test_mesh_on_one_card_named_twice(cuda):
+    """chip_smoke.py phase 19 at a small size: sharded predict and WIPStd
+    sweep over an uneven batch equal the unsharded calls on the card, and
+    NUTS chains split over the mesh equal the same chains run in its
+    groups; the split launches no Gram kernel."""
+    from bobe_tpu_torch import acquisition as tacq
+    from bobe_tpu_torch import samplers as tsamp
+    from bobe_tpu_torch.infer.nuts import run_chain
+    from bobe_tpu_torch.parallel import mesh as tmesh
+    from bobe_tpu_torch.utils.seed import split_generator
+
+    rng = np.random.default_rng(19)
+    x = rng.uniform(size=(300, 4))
+    gp = tgp.GP(train_x=x, train_y=-np.sum((x - 0.5) ** 2, axis=1) / 0.1,
+                noise=1e-6, lengthscales=np.full(4, 0.4), kernel_variance=4.0,
+                device=cuda)
+    mesh = tmesh.get_mesh([cuda, cuda])
+    xq = torch.as_tensor(rng.uniform(size=(101, 4)), device=cuda)
+    before = tkr.gram_masked.launches
+    mean_s, var_s = tmesh.sharded_predict(gp, xq, mesh)
+    acq_s = tmesh.sharded_wip_sweep(gp, xq, True, mesh)
+    assert tkr.gram_masked.launches == before
+    mean_u, var_u = tgp.predict(gp.state, gp.cfg, xq)
+    acq_u = tacq._wip_sweep_core(gp, xq, True)[0]
+    # the variance amp + noise - sum V^2 carries an absolute roundoff of
+    # its prior scale whatever the batch; the WIPStd values divide by it
+    scale = float(torch.exp(gp.state.log_amp) * gp.state.y_std ** 2)
+    torch.testing.assert_close(mean_s, mean_u, rtol=1e-12, atol=0)
+    torch.testing.assert_close(var_s, var_u, rtol=0, atol=1e-12 * scale)
+    torch.testing.assert_close(acq_s, acq_u, rtol=1e-9, atol=0)
+    assert mean_s.shape == var_s.shape == acq_s.shape == (101,)
+    make_vg, ctx = tsamp._logprob_target(gp, 1.0)
+    init = torch.as_tensor(rng.normal(size=(4, 4)), device=cuda)
+    kw = dict(num_warmup=16, num_samples=8, thinning=2, max_depth=5)
+    gens = lambda: split_generator(
+        torch.Generator(device=cuda).manual_seed(3), 4)
+    zs_s = tmesh.sharded_nuts(make_vg, ctx, init, gens(), mesh, **kw)[0]
+    for r in (slice(0, 2), slice(2, 4)):
+        zs_g = run_chain(make_vg(ctx), init[r], gens()[r], **kw)[0]
+        assert torch.equal(zs_s[r], zs_g)
+
+
+@pytest.mark.cuda
+def test_server_on_card_matches_the_run_in_process(cuda, tmp_path):
+    """chip_smoke.py phase 18 at a small size: a server on the card
+    (``--device cuda``) runs a LogEI run for this process, and its result
+    equals the same run in this process on the card at rtol 1e-9."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from bobe_tpu_torch import client as tclient
+    from bobe_tpu_torch.bo import BOBE
+    from bobe_tpu_torch.models import toys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sock = str(tmp_path / "card.sock")
+    env = dict(os.environ, BOBE_TPU_SERVER_ROLE="server")
+    env.pop("BOBE_TPU_SERVER", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bobe_tpu_torch.server", "--device", "cuda",
+         "--socket", sock, "--idle-timeout", "300"], cwd=repo, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        t0 = time.time()
+        while tclient.ping(sock) is None:
+            assert proc.poll() is None and time.time() - t0 < 180
+            time.sleep(0.2)
+        assert tclient.ping(sock)["device"].startswith("cuda")
+
+        def run(**kw):
+            return BOBE(loglikelihood=toys.rosenbrock,
+                        param_list=toys.rosenbrock_names,
+                        param_bounds=toys.rosenbrock_bounds, n_sobol_init=8,
+                        seed=3, save=False, verbosity="WARNING", **kw).run(
+                acq="logei", max_evals=14, ei_goal=1e-8, fit_n_points=4)
+
+        served = run(server=sock)
+        local = run(device=cuda)
+        np.testing.assert_allclose(served["best_val"], local["best_val"],
+                                   rtol=1e-9)
+        np.testing.assert_allclose(served["best_pt"], local["best_pt"],
+                                   rtol=1e-9)
+        # the client's GP, rebuilt on the CPU with the server's factor,
+        # predicts what the GP on the card predicts
+        xs = np.linspace(0.1, 0.9, 5)[:, None] * np.ones((5, 2))
+        np.testing.assert_allclose(
+            served["gp"].predict_mean_batched(xs).numpy(),
+            local["gp"].predict_mean_batched(xs).cpu().numpy(), rtol=1e-9)
+        assert tclient.ping(sock)["launches"]["gram_masked"] > 0
+        assert tclient.shutdown(sock)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
