@@ -345,16 +345,11 @@ def build_library(tile: int = TILE) -> ctypes.CDLL:
                            i32, i32, i32, i32, i32, ptr]
             fn.restype = i32
         lib.bobe_gram_masked_backward_f64.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-            ptr]
-        lib.bobe_gram_masked_backward_f64.restype = i32
-        lib.bobe_gram_masked_backward_x_f64.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
             i32, i32, i32, i32, ptr]
-        lib.bobe_gram_masked_backward_x_f64.restype = i32
-        for fn in (lib.bobe_gram_tile_pairs, lib.bobe_gram_fold_runs):
-            fn.argtypes = [i32]
-            fn.restype = i32
+        lib.bobe_gram_masked_backward_f64.restype = i32
+        lib.bobe_gram_fold_runs.argtypes = [i32]
+        lib.bobe_gram_fold_runs.restype = i32
         build_info.update(path=str(so), seconds=time.time() - t0,
                           log=log_text)
         _LIBS[tile] = lib
@@ -408,63 +403,44 @@ def launch_forward(name, x, mask, ls, amp, noise, out, tile=TILE):
     _check_launch("gram_masked", err)
 
 
-def launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls,
-                    grad_amp, tile=TILE):
-    """Launch the backward kernels (block partials into ``scratch``, then
-    their fixed-order sum into ``grad_ls``, ``grad_amp``) on the current
-    stream: no checks, no count, no allocation (the wrapper's body, and what
-    a device-time measurement loops over)."""
-    lib = build_library(tile)
-    cap, d = x.shape[-2:]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bobe_gram_masked_backward_f64(
-            x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
-            grad.data_ptr(), scratch.data_ptr(), grad_ls.data_ptr(),
-            grad_amp.data_ptr(), cap, d, ls.shape[0], int(x.dim() == 3),
-            _KINDS[name], stream)
-    _check_launch("gram_masked_backward", err)
-
-
-def launch_backward_x(name, x, mask, ls, amp, grad, part, dxpart, grad_ls,
-                      grad_amp, grad_x, tile=None):
-    """Launch the coordinate backward, one kernel, into ``grad_ls``,
-    ``grad_amp`` and ``grad_x`` (lanes, cap, d) on the current stream, with
-    scratch ``part`` and ``dxpart`` of :func:`backward_x_scratch_sizes` and
-    the stream's ticket buffer: no checks, no count, no allocation past the
-    ticket buffer's first. ``tile`` (32 or 64) defaults to
-    :func:`backward_x_tile`'s choice for the shape; anything else is for
-    measurements."""
+def launch_backward(name, x, mask, ls, amp, grad, part, grad_ls, grad_amp,
+                    dxpart=None, grad_x=None, tile=None):
+    """Launch the backward, one kernel, into ``grad_ls`` and ``grad_amp``
+    and, when ``grad_x`` (lanes, cap, d) is given, dL/dx (the coordinate
+    variant, with ``dxpart``) on the current stream, with scratch of
+    :func:`backward_scratch_sizes` and the stream's ticket buffer: no
+    checks, no count, no allocation past the ticket buffer's first (the
+    wrappers' body, and what a device-time measurement loops over).
+    ``tile`` (32 or 64) defaults to :func:`backward_tile`'s choice for the
+    shape; another edge is for measurements."""
     lib = build_library()
     cap, d = x.shape[-2:]
     lanes = ls.shape[0]
-    tile = backward_x_tile(cap, d, lanes) if tile is None else tile
+    tile = backward_tile(cap, d, lanes) if tile is None else tile
+    need_x = grad_x is not None
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device)
         tickets = ticket_buffer(
-            stream, backward_x_scratch_sizes(cap, d, lanes, tile)[2])
-        err = lib.bobe_gram_masked_backward_x_f64(
+            stream, backward_scratch_sizes(cap, d, lanes, tile, need_x)[2])
+        err = lib.bobe_gram_masked_backward_f64(
             x.data_ptr(), mask.data_ptr(), ls.data_ptr(), amp.data_ptr(),
-            grad.data_ptr(), part.data_ptr(), dxpart.data_ptr(),
-            tickets.data_ptr(), grad_ls.data_ptr(), grad_amp.data_ptr(),
-            grad_x.data_ptr(), cap, d, lanes, int(x.dim() == 3),
-            _KINDS[name], int(tile), stream.cuda_stream)
-    _check_launch("gram_masked_backward_x", err)
+            grad.data_ptr(), part.data_ptr(), ptr(dxpart), tickets.data_ptr(),
+            grad_ls.data_ptr(), grad_amp.data_ptr(), ptr(grad_x), cap, d,
+            lanes, int(x.dim() == 3), _KINDS[name], int(tile),
+            stream.cuda_stream)
+    _check_launch("gram_masked_backward_x" if need_x
+                  else "gram_masked_backward", err)
 
 
-def backward_scratch_size(cap, d, lanes, tile=TILE) -> int:
-    """float64 entries of the backward's block-partial scratch."""
-    return lanes * (d + 1) * build_library(tile).bobe_gram_tile_pairs(cap)
-
-
-# H100 SXM: streaming multiprocessors the coordinate backward's grid fills
+# H100 SXM: streaming multiprocessors the backwards' grids fill
 _SMS = 132
 
 
-def backward_x_tile(cap, d, lanes) -> int:
-    """Tile edge of the coordinate backward at this shape: 64 where its grid
-    of lanes x tile pairs has a block for every SM of the card, else 32,
-    which gives the grid about four times the blocks (cap 256 with 8 lanes:
+def backward_tile(cap, d, lanes) -> int:
+    """Tile edge of both backwards at this shape: 64 where their grid of
+    lanes x tile pairs has a block for every SM of the card, else 32, which
+    gives the grid about four times the blocks (cap 256 with 8 lanes:
     36 x 8 = 288 blocks where 64-row tiles give 80). Depends on the shape
     alone (``d`` does not change the choice)."""
     t = -(-cap // 64)
@@ -481,22 +457,28 @@ def fold_runs(t):
     return -(-t // run)
 
 
-def backward_x_scratch_sizes(cap, d, lanes, tile):
-    """(float64 entries of the coordinate backward's hyperparameter
-    partials, float64 entries of its row contributions and their run sums,
-    its tickets) at tile edge ``tile``: T = ceil(cap / tile) row tiles,
-    T (T + 1) / 2 tile pairs and R = fold_runs(T) runs a lane."""
+def backward_scratch_sizes(cap, d, lanes, tile, need_x=False):
+    """(float64 entries of the backward's tile-pair hyperparameter
+    partials, float64 entries of the coordinate variant's row contributions
+    and their run sums, its tickets) at tile edge ``tile``: T = ceil(cap /
+    tile) row tiles, T (T + 1) / 2 tile pairs of d + 1 partials a lane and
+    R = fold_runs(T) runs; without ``need_x`` no row contributions and one
+    ticket a lane."""
     t = -(-cap // tile)
     pairs = t * (t + 1) // 2
+    n_part = lanes * pairs * (d + 1)
+    if not need_x:
+        return n_part, 0, lanes
     runs = fold_runs(t)
-    return (lanes * pairs * (d + 1), lanes * (2 * pairs + t * runs) * tile * d,
+    return (n_part, lanes * (2 * pairs + t * runs) * tile * d,
             lanes * (t * runs + t + 1))
 
 
 # One ticket buffer per device and stream, zeroed once when it is
-# allocated; each launch of the coordinate backward leaves its tickets at 0
-# again. Launches on one stream run one after another, so no two launches
-# that share a buffer overlap, whichever streams a caller uses.
+# allocated, shared by both backwards and sized for the larger need; each
+# launch leaves its tickets at 0 again. Launches on one stream run one after
+# another, so no two launches that share a buffer overlap, whichever
+# streams a caller uses.
 _TICKETS: dict = {}
 
 
@@ -540,16 +522,15 @@ def _gram_masked_backward_cuda(name, x, mask, ls, amp, grad, need_x):
             f"tensor like x, got {tuple(grad.shape)} {grad.dtype}")
     new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
     grad_ls, grad_amp = new(lanes, d), new(lanes)
+    n_part, n_dx, _ = backward_scratch_sizes(
+        cap, d, lanes, backward_tile(cap, d, lanes), need_x)
     if not need_x:
-        scratch = new(backward_scratch_size(cap, d, lanes))
-        launch_backward(name, x, mask, ls, amp, grad, scratch, grad_ls,
+        launch_backward(name, x, mask, ls, amp, grad, new(n_part), grad_ls,
                         grad_amp)
         gram_masked_backward.launches += 1
         return grad_ls, grad_amp
-    n_part, n_dx, _ = backward_x_scratch_sizes(
-        cap, d, lanes, backward_x_tile(cap, d, lanes))
     grad_x = new(lanes, cap, d)
-    launch_backward_x(name, x, mask, ls, amp, grad, new(n_part), new(n_dx),
-                      grad_ls, grad_amp, grad_x)
+    launch_backward(name, x, mask, ls, amp, grad, new(n_part), grad_ls,
+                    grad_amp, dxpart=new(n_dx), grad_x=grad_x)
     gram_masked_backward_x.launches += 1
     return grad_ls, grad_amp, grad_x

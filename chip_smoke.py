@@ -14,10 +14,11 @@ non-zero):
    with one set of coordinates per lane (the input warp); and the warp
    fit's own shape (cap 256, d=6, 8 lanes, per-lane x), there also two
    launches bit for bit;
-2b. hold the Gram backward kernel against its plain version (rbf/matern,
-   float64, four capacities, four dimensions, one and four lanes, a random
-   cotangent), and two of its launches against each other bit for bit; then
-   its coordinate variant (dL/dx, one launch) the same way, with d in
+2b. hold the Gram backward kernel (one launch) against its plain version
+   (rbf/matern, float64, four capacities, four dimensions, one and four
+   lanes, a random cotangent), two of its launches against each other bit
+   for bit, and its tickets back at 0 after every call; then its
+   coordinate variant (dL/dx, one launch) the same way, with d in
    {1, 6, 30, 40}, shared and per-lane x, the warp fit's shape (cap 256,
    d=6, 8 lanes), 8 lanes at caps on both sides of the shape's switch from
    32- to 64-row tiles (200, 300, 320, 330), pad rows exactly 0, and its
@@ -27,7 +28,8 @@ non-zero):
    call, the plain versions (CUDA events, median of 25) and the bound; the
    per-lane forward and the dL/dx backward at the warp fit's shape (cap
    256, d=6, 8 lanes), at cap 384 and at d=30 (cap 1280, 4 lanes), with
-   the dL/dx backward's device launches per wrapper call (torch.profiler);
+   both backwards' device launches per wrapper call (torch.profiler; 1, or
+   the phase fails) and tile edges;
 4. run the slice end to end: BOBE on the banana toy, WIPStd acquisition with
    an NS-mode MC pool, on the card;
 5. the slice's operations at N=1024, d=8 (the bench.py cell): a GP fit, a
@@ -155,14 +157,18 @@ PEAK_FLOPS = {8: 34e12, 4: 67e12}
 PEAK_FLOPS_F64_MMA = 67e12
 # f64 operations per distinct Gram entry that the function needs: 3 per
 # dimension for the distance (subtract, multiply, add), ~20 for the exp and
-# the scaling; the backward adds one FMA (2) per dimension for the gradient
-# sum w * D^2 and ~5 for the weight
+# the scaling; the backward ~5 more for the weight on the vector units, and
+# its lengthscale sums sum_ij W_ij D_ijk^2 as a product on the FP64 tensor
+# cores (sum_i r_i u_ik^2 + sum_j c_j v_jk^2 - 2 sum_i u_ik (W v)_ik: one
+# FMA per dimension and entry, and the row sums r as a column of ones),
+# whichever implementation computes them
 FWD_OPS = (3, 20)
-BWD_OPS = (5, 25)
-# the coordinate variant: the backward's vector work, and on the FP64
-# tensor cores its two products W xs and W^T xs (an FMA for the row and one
-# for the column, per dimension and entry) with the row and column sums of W
-# (the ones column)
+BWD_OPS = (3, 25)
+BWD_MMA_OPS = (2, 2)
+# the coordinate variant: the same vector work, and on the tensor cores its
+# two products W xs and W^T xs (an FMA for the row and one for the column,
+# per dimension and entry) with the row and column sums of W (the ones
+# column), which also give the lengthscale sums
 BWD_X_OPS = BWD_OPS
 BWD_X_MMA_OPS = (4, 4)
 # (cap, d, lanes, per-lane x) of the input warp's fits on the main path: the
@@ -392,7 +398,8 @@ def phase_kernel_check():
 def phase_backward_check():
     """The backward kernel against the plain backward, per component within
     1e-10 * sum_ij |G_ij dK_ij/dtheta| (the two sum in different orders),
-    and two launches bit-identical."""
+    two launches bit-identical, and its tickets back at 0 after every
+    call."""
     import numpy as np
     import torch
 
@@ -400,6 +407,7 @@ def phase_backward_check():
 
     dev = torch.device("cuda")
     worst_abs, worst_rel, n_cases = 0.0, 0.0, 0
+    tiles = set()
     for name in ("rbf", "matern"):
         for cap in (128, 1024, 1280, 2048):
             for d in (2, 8, 30, 40):
@@ -410,7 +418,10 @@ def phase_backward_check():
                     g = torch.as_tensor(rng.normal(size=(lanes, cap, cap)),
                                         device=dev)
                     got = kr.gram_masked_backward(name, x, mask, ls, amp, g)
+                    _tickets_zero(x, f"gram_masked_backward {name} cap={cap}")
                     again = kr.gram_masked_backward(name, x, mask, ls, amp, g)
+                    _tickets_zero(x, f"gram_masked_backward {name} cap={cap}")
+                    tiles.add(kr.backward_tile(cap, d, lanes))
                     want = kr.gram_masked_backward_plain(name, x, mask, ls,
                                                          amp, g)
                     scale = kr.gram_masked_backward_plain(name, x, mask, ls,
@@ -432,11 +443,23 @@ def phase_backward_check():
                         worst_rel = max(worst_rel, float((err / sc).max()))
                     n_cases += 1
     _sync()
-    print(f"[phase 2b] {n_cases} backward cases agree with "
+    print(f"[phase 2b] {n_cases} backward cases (tile edges "
+          f"{sorted(tiles)}) agree with "
           f"gram_masked_backward_plain: max abs err {worst_abs:.3e}, max "
           f"err / sum|G dK/dtheta| {worst_rel:.3e} (tolerance 1e-10); two "
-          "launches bit-identical in every case")
+          "launches bit-identical in every case; tickets 0 after every call")
     return worst_abs
+
+
+def _tickets_zero(x, what):
+    """Fail unless every ticket of the current stream's buffer is 0."""
+    import torch
+
+    from bobe_tpu_torch.ops import kernels as kr
+
+    tickets = kr.ticket_buffer(torch.cuda.current_stream(x.device), 0)
+    if bool((tickets != 0).any()):
+        raise AssertionError(f"{what}: tickets not reset")
 
 
 def _dx_scale(name, x, mask, ls, amp, g):
@@ -483,7 +506,7 @@ def phase_backward_x_check():
             for d in (1, 6, 30, 40)
             for lanes, per_lane in ((1, False), (4, False), (1, True),
                                     (4, True))]
-    # 8 lanes on both sides of backward_x_tile's switch from 32- to 64-row
+    # 8 lanes on both sides of backward_tile's switch from 32- to 64-row
     # tiles (between caps 320 and 321 at 8 lanes), ragged caps among them
     grid += [(cap, d, 8, per_lane) for cap in (200, 300, 320, 330)
              for d in (6, 30) for per_lane in (True, False)]
@@ -525,11 +548,8 @@ def phase_backward_x_check():
             if bool((got[2][:, n:] != 0).any()):
                 raise AssertionError(f"{what}: pad rows of dL/dx are not "
                                      "exactly 0")
-            tickets = kr.ticket_buffer(torch.cuda.current_stream(x.device),
-                                       0)
-            if bool((tickets != 0).any()):
-                raise AssertionError(f"{what}: tickets not reset")
-            tiles.add(kr.backward_x_tile(cap, d, lanes))
+            _tickets_zero(x, what)
+            tiles.add(kr.backward_tile(cap, d, lanes))
             n_cases += 1
     _sync()
     print(f"[phase 2b] {n_cases} dL/dx cases (tile edges "
@@ -591,8 +611,8 @@ def bound_ms(kind, cap, d, lanes, itemsize=8, per_lane=False):
     """The least time for the work: each input read once and each output
     written once at the HBM rate, the f64 (f32) vector operations on the
     cap (cap + 1) / 2 distinct entries at the FP64 (FP32) peak, or the
-    coordinate variant's products at the FP64 tensor-core peak, whichever is
-    largest (the tensor cores run beside the vector units). ``kind``:
+    backwards' products at the FP64 tensor-core peak, whichever is largest
+    (the tensor cores run beside the vector units). ``kind``:
     forward, backward or backward_x (which also writes dL/dx). Returns (ms,
     "bytes" or "operations")."""
     per_dim, fixed = {"forward": FWD_OPS, "backward": BWD_OPS,
@@ -606,8 +626,9 @@ def bound_ms(kind, cap, d, lanes, itemsize=8, per_lane=False):
     entries = lanes * cap * (cap + 1) / 2
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = entries * (per_dim * d + fixed) / PEAK_FLOPS[itemsize] * 1e3
-    if kind == "backward_x":
-        mma_dim, mma_fixed = BWD_X_MMA_OPS
+    if kind != "forward":
+        mma_dim, mma_fixed = {"backward": BWD_MMA_OPS,
+                              "backward_x": BWD_X_MMA_OPS}[kind]
         t_ops = max(t_ops, entries * (mma_dim * d + mma_fixed)
                     / PEAK_FLOPS_F64_MMA * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -648,14 +669,15 @@ def _time_shape(kr, dev, out, cap, d, lanes, per_lane):
         size=(lanes, cap, cap)), device=dev)
     k_out = torch.empty((lanes, cap, cap), dtype=torch.float64,
                         device=dev)
-    scratch = torch.empty(kr.backward_scratch_size(cap, d, lanes),
-                          dtype=torch.float64, device=dev)
+    part = torch.empty(kr.backward_scratch_sizes(
+        cap, d, lanes, kr.backward_tile(cap, d, lanes))[0],
+        dtype=torch.float64, device=dev)
     g_ls = torch.empty((lanes, d), dtype=torch.float64, device=dev)
     g_amp = torch.empty((lanes,), dtype=torch.float64, device=dev)
     if per_lane:
-        n_part, n_dx, _ = kr.backward_x_scratch_sizes(
-            cap, d, lanes, kr.backward_x_tile(cap, d, lanes))
-        part = torch.empty(n_part, dtype=torch.float64, device=dev)
+        n_part, n_dx, _ = kr.backward_scratch_sizes(
+            cap, d, lanes, kr.backward_tile(cap, d, lanes), need_x=True)
+        part_x = torch.empty(n_part, dtype=torch.float64, device=dev)
         dx_scratch = torch.empty(n_dx, dtype=torch.float64, device=dev)
         g_x = torch.empty((lanes, cap, d), dtype=torch.float64,
                           device=dev)
@@ -667,8 +689,8 @@ def _time_shape(kr, dev, out, cap, d, lanes, per_lane):
             lambda: kr.gram_masked_plain("rbf", x, mask, ls, amp,
                                          noise)),
         "backward": (
-            lambda: kr.launch_backward("rbf", x, mask, ls, amp, g,
-                                       scratch, g_ls, g_amp),
+            lambda: kr.launch_backward("rbf", x, mask, ls, amp, g, part,
+                                       g_ls, g_amp),
             lambda: kr.gram_masked_backward("rbf", x, mask, ls, amp,
                                             g),
             lambda: kr.gram_masked_backward_plain("rbf", x, mask, ls,
@@ -676,8 +698,9 @@ def _time_shape(kr, dev, out, cap, d, lanes, per_lane):
     }
     if per_lane:
         runs["backward_x"] = (
-            lambda: kr.launch_backward_x("rbf", x, mask, ls, amp, g, part,
-                                         dx_scratch, g_ls, g_amp, g_x),
+            lambda: kr.launch_backward("rbf", x, mask, ls, amp, g, part_x,
+                                       g_ls, g_amp, dxpart=dx_scratch,
+                                       grad_x=g_x),
             lambda: kr.gram_masked_backward_x("rbf", x, mask, ls, amp,
                                               g),
             lambda: kr.gram_masked_backward_plain(
@@ -694,14 +717,14 @@ def _time_shape(kr, dev, out, cap, d, lanes, per_lane):
                "plain_ms": min(t_p0, t_p1), "bound_ms": t_bound,
                "bound_by": by}
         extra = ""
-        if kind == "backward_x":
+        if kind != "forward":
             # device launches of one wrapper call, and its tile edge
-            row["launches_per_call"] = _device_launches(wrapper)
-            row["tile"] = kr.backward_x_tile(cap, d, lanes)
+            row["launches_per_call"] = _launches_per_call(wrapper)
+            row["tile"] = kr.backward_tile(cap, d, lanes)
             extra = (f", {row['launches_per_call']} launch(es) per call, "
                      f"tile {row['tile']}")
             if row["launches_per_call"] != 1:
-                raise AssertionError(f"phase 3: the dL/dx backward made "
+                raise AssertionError(f"phase 3: the {kind} made "
                                      f"{row['launches_per_call']} device "
                                      "launches in one call, not 1")
         out[(kind, cap, d, lanes, per_lane)] = row
@@ -1044,6 +1067,18 @@ def _device_launches(fn):
         _sync()
     n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
     return n or None
+
+
+def _launches_per_call(fn, tries=3):
+    """_device_launches of one call of ``fn``. torch.profiler's CUDA
+    tracing now and then records no device activity at all for a call
+    (None); such a profile is taken again, up to ``tries`` times, so that
+    a count is read whenever the tracer works."""
+    for _ in range(tries):
+        n = _device_launches(fn)
+        if n is not None:
+            return n
+    return None
 
 
 def _moments_close(name, mean, std, ref_mean, ref_std, ref_name,
@@ -3107,12 +3142,13 @@ def main():
         entry["launches"] = sum(v[i] for v in launches.values())
         entry["launches_by_phase"] = {k: v[i] for k, v in launches.items()}
     fwd["per_lane_x"]["launches_by_phase"] = lane_x
-    # the coordinate backward at every timed shape, launches per call
-    bwd_x["by_shape"] = [
-        {"cap": k[1], "d": k[2], "lanes": k[3], "ms": v["ms"],
-         "bound_ms": v["bound_ms"], "launches_per_call":
-         v["launches_per_call"], "tile": v["tile"]}
-        for k, v in times.items() if k[0] == "backward_x"]
+    # both backwards at every timed shape, launches per call
+    for entry, kind in ((bwd, "backward"), (bwd_x, "backward_x")):
+        entry["by_shape"] = [
+            {"cap": k[1], "d": k[2], "lanes": k[3], "ms": v["ms"],
+             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+             "launches_per_call": v["launches_per_call"], "tile": v["tile"]}
+            for k, v in times.items() if k[0] == kind]
     phase_cold_start()
     print(json.dumps({"kernels": [fwd, bwd, bwd_x]}))
     print(json.dumps({"ok": True, "device": {

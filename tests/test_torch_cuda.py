@@ -338,6 +338,81 @@ def test_backward_x_on_two_streams_on_card(cuda):
         assert int(tkr.ticket_buffer(s, 0).abs().sum()) == 0
 
 
+def _device_ops(fn):
+    """Device operations (kernels, copies, sets) that ``fn`` launches, from
+    torch.profiler's CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,cap,n,d", [(1, 128, 90, 8), (4, 1280, 1200, 30)])
+def test_backward_one_launch_and_tickets_reset_on_card(cuda, lanes, cap, n,
+                                                        d):
+    """The hyperparameter backward is one device launch a call (tile edge
+    32 at cap 128, 64 at cap 1280) and leaves every ticket of its stream at
+    0 after each of two calls in a row, which agree bit for bit; each call
+    counts one launch."""
+    x, mask, ls, amp, g = _lane_inputs(lanes, cap, n, d, 38, cuda)
+    x = x[0].contiguous()
+    tkr.gram_masked_backward("rbf", x, mask, ls, amp, g)  # the ticket buffer
+    before = tkr.gram_masked_backward.launches
+    runs = []
+    for _ in range(2):
+        runs.append(tkr.gram_masked_backward("rbf", x, mask, ls, amp, g))
+        torch.cuda.synchronize()
+        tickets = tkr.ticket_buffer(torch.cuda.current_stream(cuda), 0)
+        assert int(tickets.abs().sum()) == 0
+    assert tkr.gram_masked_backward.launches == before + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert _device_ops(
+        lambda: tkr.gram_masked_backward("rbf", x, mask, ls, amp, g)) == 1
+
+
+@pytest.mark.cuda
+def test_backwards_interleaved_on_streams_on_card(cuda):
+    """Hyperparameter and coordinate backwards, which share a stream's
+    ticket buffer, interleaved on the current stream and on two side
+    streams (each stream running both kinds in turn): every result equals
+    the same call alone bit for bit, and every ticket ends at 0."""
+    cases = []
+    for lanes, cap, n, d, seed in ((8, 256, 209, 6, 39),
+                                   (4, 1280, 1200, 30, 40)):
+        x, mask, ls, amp, g = _lane_inputs(lanes, cap, n, d, seed, cuda)
+        cases.append(("ls", (x[0].contiguous(), mask, ls, amp, g)))
+        cases.append(("x", (x, mask, ls, amp, g)))
+    call = {"ls": lambda a: tkr.gram_masked_backward("rbf", *a),
+            "x": lambda a: tkr.gram_masked_backward_x("rbf", *a)}
+    want = [call[kind](a) for kind, a in cases]
+    got = [[] for _ in cases]
+    for _ in range(3):
+        for i, (kind, a) in enumerate(cases):
+            got[i].append(call[kind](a))
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    for rnd in range(4):
+        # even rounds: one kind a stream; odd rounds: one shape a stream,
+        # both kinds on it
+        for i, (kind, a) in enumerate(cases):
+            with torch.cuda.stream(streams[i // 2 % 2 if rnd % 2 else i % 2]):
+                got[i].append(call[kind](a))
+    torch.cuda.synchronize()
+    for w, outs in zip(want, got):
+        for res in outs:
+            for a, b in zip(res, w):
+                assert torch.equal(a, b)
+    for s in [torch.cuda.current_stream(cuda)] + streams:
+        assert int(tkr.ticket_buffer(s, 0).abs().sum()) == 0
+
+
 @pytest.mark.cuda
 def test_warp_fit_on_card(cuda):
     """A warp fit on the card runs every objective through the per-lane

@@ -248,18 +248,21 @@ def test_kernel_library_is_not_built_at_import():
     assert tkr.build_info == {}
 
 
-# The coordinate backward's tile edge: 64 where lanes x pairs of 64-row
-# tiles reach the card's 132 SMs, else 32; the boundary at 8, 4 and 1 lanes.
+# Both backwards' tile edge: 64 where lanes x pairs of 64-row tiles reach
+# the card's 132 SMs, else 32; the boundary at 8, 4 and 1 lanes, and the
+# hyperparameter backward's shapes of chip_smoke.py phase 3.
 @pytest.mark.parametrize("cap,lanes,tile", [
     (200, 8, 32), (256, 8, 32), (300, 8, 32), (320, 8, 32), (321, 8, 64),
     (384, 8, 64), (448, 4, 32), (449, 4, 64), (1280, 4, 64), (960, 1, 32),
-    (961, 1, 64), (1, 1, 32), (2048, 4, 64)])
+    (961, 1, 64), (1, 1, 32), (2048, 4, 64), (128, 1, 32), (128, 4, 32),
+    (200, 4, 32), (1024, 1, 64), (1024, 4, 64), (1280, 1, 64),
+    (2048, 1, 64)])
 def test_backward_x_tile_is_chosen_by_shape(cap, lanes, tile):
     """The choice depends on (cap, d, lanes) alone: the same for every d,
     on every call, and it builds no library (it runs here without nvcc)."""
-    got = {tkr.backward_x_tile(cap, d, lanes) for d in (1, 6, 30, 40, 128)}
+    got = {tkr.backward_tile(cap, d, lanes) for d in (1, 6, 30, 40, 128)}
     assert got == {tile}
-    assert tkr.backward_x_tile(cap, 6, lanes) == tile
+    assert tkr.backward_tile(cap, 6, lanes) == tile
     t = -(-cap // 64)
     assert (lanes * t * (t + 1) // 2 >= 132) == (tile == 64)
 
@@ -282,4 +285,98 @@ def test_backward_x_scratch_sizes(cap, d, lanes, tile, sizes):
     slabs of tile rows x d (the pairs' contributions and the run sums); T R
     + T + 1 tickets; T = ceil(cap / tile), pairs = T (T + 1) / 2, R =
     fold_runs(T)."""
-    assert tkr.backward_x_scratch_sizes(cap, d, lanes, tile) == sizes
+    assert tkr.backward_scratch_sizes(cap, d, lanes, tile,
+                                      need_x=True) == sizes
+
+
+def _corr_dcorr(name, dsq):
+    if name == "rbf":
+        c = torch.exp(-0.5 * dsq)
+        return c, c
+    r = torch.sqrt(torch.clamp(dsq, min=1e-30))
+    e = torch.exp(-tkr.SQRT5 * r)
+    return ((1.0 + tkr.SQRT5 * r + (5.0 / 3.0) * dsq) * e,
+            (5.0 / 3.0) * (1.0 + tkr.SQRT5 * r) * e)
+
+
+def _product_form_backward(name, x, mask, ls, amp, g, tile):
+    """The hyperparameter backward as the CUDA kernel sums it, in float64:
+    for each tile pair (bi >= bj) the weight W = (G_ij + G_ji) amp m_i m_j
+    c'_ij from exact-difference distances (W_ii = 0 on a diagonal pair,
+    where D_ii = 0), the lengthscale sums by the product form
+    sum_i r_i u_i^2 + sum_j c_j v_j^2 - 2 sum_i u_i (W v)_i with u, v the
+    pair's scaled rows less its origin (the column tile's first row), r and
+    c W's row and column sums; diagonal pairs halved."""
+    cap = x.shape[-2]
+    t_n = -(-cap // tile)
+    grad_ls, grad_amp = torch.zeros_like(ls), torch.zeros_like(amp)
+    for r in range(ls.shape[0]):
+        xs = x / ls[r]
+        for bi in range(t_n):
+            for bj in range(bi + 1):
+                rows_i = slice(bi * tile, min(cap, (bi + 1) * tile))
+                rows_j = slice(bj * tile, min(cap, (bj + 1) * tile))
+                u, v = xs[rows_i], xs[rows_j]
+                dsq = ((u[:, None, :] - v[None, :, :]) ** 2).sum(-1)
+                corr, dcorr = _corr_dcorr(name, dsq)
+                gm = (g[r, rows_i, rows_j] + g[r, rows_j, rows_i].T) \
+                    * mask[rows_i, None] * mask[None, rows_j]
+                w = gm * amp[r] * dcorr
+                if bi == bj:
+                    w = w * (1.0 - torch.eye(w.shape[0], dtype=w.dtype))
+                o = v[0]
+                uo, vo = u - o, v - o
+                ls_sum = (w.sum(1)[:, None] * uo ** 2).sum(0) \
+                    + (w.sum(0)[:, None] * vo ** 2).sum(0) \
+                    - 2.0 * (uo * (w @ vo)).sum(0)
+                half = 0.5 if bi == bj else 1.0
+                grad_ls[r] += half * ls_sum
+                grad_amp[r] += half * (gm * corr).sum()
+    return grad_ls / ls, grad_amp
+
+
+@pytest.mark.parametrize("name", ["rbf", "matern"])
+@pytest.mark.parametrize("cap,n,d,tile", [(100, 70, 8, 32), (150, 120, 30, 64)])
+def test_gram_backward_product_form_matches_plain_and_jax(name, cap, n, d,
+                                                          tile):
+    """The ℓ/amp kernel's arithmetic (the product form of the lengthscale
+    sums, with the pair's origin, tile by tile) against the plain backward
+    and jax.vjp of the JAX package's Gram, within 1e-10 of
+    sum_ij |G_ij dK_ij/dtheta| per component: caps that are not a multiple
+    of the tile, pad rows, a non-symmetric G, and lengthscales from 0.05
+    (times sqrt(d / 8) above d=8, as chip_smoke.py phase 2b draws them, so
+    that correlations stay above roundoff) with one at exactly 0.05: x on
+    the unit cube, so that scaled coordinates reach 20 while the weighted
+    pairs are close, the expansion's worst case."""
+    lanes = 2
+    x, mask, _, _ = _inputs(cap, n, d, seed=cap + d)
+    rng = np.random.default_rng(cap * d)
+    ls = rng.uniform(0.05, 2.0, size=(lanes, d)) * max(1.0, np.sqrt(d / 8))
+    ls[0, 0] = 0.05
+    amp = rng.uniform(0.5, 3.0, size=lanes)
+    g = rng.normal(size=(lanes, cap, cap))
+    args = (_t(x), _t(mask), _t(ls), _t(amp))
+    got = _product_form_backward(name, *args, _t(g), tile)
+    want = tkr.gram_masked_backward_plain(name, *args, _t(g))
+    scale = tkr.gram_masked_backward_plain(name, *args, _t(np.abs(g)))
+
+    def build(l, a):
+        return jkr.gram_masked(name, jnp.asarray(x), jnp.asarray(mask), l, a,
+                               1e-6)
+
+    jls, jamp = jax.vmap(lambda l, a, gr: jax.vjp(build, l, a)[1](gr))(
+        jnp.asarray(ls), jnp.asarray(amp), jnp.asarray(g))
+    for k, w, jw, s in zip(got, want, (jls, jamp), scale):
+        assert bool(((k - w).abs() <= 1e-10 * s).all())
+        assert bool(((k - _t(np.asarray(jw))).abs() <= 1e-10 * s).all())
+
+
+@pytest.mark.parametrize("cap,d,lanes,tile,sizes", [
+    (1280, 30, 4, 64, (4 * 210 * 31, 0, 4)),
+    (1280, 8, 1, 64, (210 * 9, 0, 1)),
+    (128, 8, 4, 32, (4 * 10 * 9, 0, 4)),
+    (200, 2, 3, 32, (3 * 28 * 3, 0, 3))])
+def test_backward_scratch_sizes(cap, d, lanes, tile, sizes):
+    """Per lane: T (T + 1) / 2 tile pairs of d + 1 partials, T = ceil(cap /
+    tile), no row contributions and one ticket."""
+    assert tkr.backward_scratch_sizes(cap, d, lanes, tile) == sizes

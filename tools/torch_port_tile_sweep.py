@@ -1,20 +1,25 @@
-"""Tile size of the Gram kernels: device time with 32x32 and 64x64 tiles.
+"""Tile size and design of the Gram kernels: device time on one card.
 
 Builds the kernels' library twice through ``kernels.build_library(tile)``,
-with output tiles of 32x32 and of 64x64 (the shipped size), and times the
-forward and the backward of each build at the main path's shapes on one
-card: device time from chip_smoke.py's CUDA graph of back-to-back launches,
-builds in turns (64, 32, 32, 64) within one process. Each build's forward
-must equal the first's bit for bit, and its backward agree to 1e-10 of the
-largest gradient component (the sums run in another order).
+with forward output tiles of 32x32 and of 64x64 (the shipped size), and
+times the forward of each build at the main path's shapes: device time from
+chip_smoke.py's CUDA graph of back-to-back launches, builds in turns (64,
+32, 32, 64) within one process. Each build's forward must equal the first's
+bit for bit.
 
-With ``--backward-x`` it times the coordinate backward instead, whose one
-library holds both tile edges (``kernels.launch_backward_x(tile=...)``), at
-the input warp's shapes with per-lane x, in the same turns, beside the edge
-that ``kernels.backward_x_tile`` picks; each edge's dL/dx must agree with
-the other's to 1e-10 of the largest component.
+With ``--backward`` it times the hyperparameter backward instead, whose
+one library holds both tile edges (``kernels.launch_backward(tile=...)``),
+at chip smoke's phase-3 shapes, in the same turns, beside the edge that
+``kernels.backward_tile`` picks; each edge's gradients must agree with the
+other's to 1e-10 of the largest component of each.
 
-    python tools/torch_port_tile_sweep.py [--backward-x]
+With ``--backward-x`` it times the coordinate backward
+(``kernels.launch_backward(..., grad_x=..., tile=...)``) at the input
+warp's shapes with per-lane x, in the same turns, beside the edge that
+``kernels.backward_tile`` picks; each edge's dL/dx must agree with the
+other's to 1e-10 of the largest component.
+
+    python tools/torch_port_tile_sweep.py [--backward | --backward-x]
 """
 from __future__ import annotations
 
@@ -30,6 +35,9 @@ import torch  # noqa: E402
 
 TILES = (64, 32, 32, 64)
 SHAPES = ((128, 2), (128, 8), (1024, 8), (1280, 8), (2048, 8), (1280, 30))
+# (cap, d) of the hyperparameter backward: chip_smoke.py phase 3's, with 1
+# and 4 lanes
+SHAPES_BWD = ((128, 8), (1024, 8), (1280, 8), (2048, 8), (1280, 30))
 
 
 # (cap, d, lanes) of the coordinate backward: the warp fit's shape, cap 384,
@@ -38,31 +46,41 @@ SHAPES_X = ((256, 6, 8), (384, 6, 8), (1280, 30, 4), (448, 6, 8),
             (512, 6, 8), (1024, 6, 8), (1280, 6, 8), (2048, 30, 4))
 
 
-def sweep_backward_x(cs, kr):
+def sweep_backward(cs, kr, need_x):
+    """Each tile edge's device time in turns at the hyperparameter
+    backward's shapes, or with ``need_x`` the coordinate backward's."""
     dev = torch.device("cuda")
-    for cap, d, lanes in SHAPES_X:
+    shapes = SHAPES_X if need_x else [(cap, d, lanes) for cap, d in SHAPES_BWD
+                                      for lanes in (1, 4)]
+    for cap, d, lanes in shapes:
         x, mask, ls, amp, _, _ = cs._inputs(cap, d, cap + lanes,
-                                            torch.float64, dev, lanes, True)
+                                            torch.float64, dev, lanes, need_x)
         g = torch.as_tensor(np.random.default_rng(cap).normal(
             size=(lanes, cap, cap)), device=dev)
         new = lambda n: torch.empty(n, dtype=torch.float64, device=dev)
         ref, row = None, []
         for tile in TILES:
-            n_part, n_dx, _ = kr.backward_x_scratch_sizes(cap, d, lanes, tile)
-            part, dxp = new(n_part), new(n_dx)
-            g_ls, g_amp, g_x = new((lanes, d)), new(lanes), new((lanes, cap, d))
-            t = cs._device_ms(lambda: kr.launch_backward_x(
-                "rbf", x, mask, ls, amp, g, part, dxp, g_ls, g_amp, g_x,
-                tile=tile))
+            n_part, n_dx, _ = kr.backward_scratch_sizes(cap, d, lanes, tile,
+                                                        need_x)
+            part = new(n_part)
+            out = [new((lanes, d)), new(lanes)]
+            extra = {}
+            if need_x:
+                out.append(new((lanes, cap, d)))
+                extra = {"dxpart": new(n_dx), "grad_x": out[2]}
+            t = cs._device_ms(lambda: kr.launch_backward(
+                "rbf", x, mask, ls, amp, g, part, out[0], out[1], tile=tile,
+                **extra))
             if ref is None:
-                ref = g_x.clone()
-            elif float((g_x - ref).abs().max() / ref.abs().max()) > 1e-10:
-                raise AssertionError(f"tile {tile} cap={cap} d={d}: dL/dx "
-                                     "differs")
+                ref = [o.clone() for o in out]
+            for got, want in zip(out, ref):
+                if float((got - want).abs().max() / want.abs().max()) > 1e-10:
+                    raise AssertionError(f"tile {tile} cap={cap} d={d}: "
+                                         "gradients differ")
             row.append(f"t{tile} {t * 1e3:.2f} us")
-        print(f"backward_x cap={cap} d={d} lanes={lanes} (picks "
-              f"{kr.backward_x_tile(cap, d, lanes)}): " + " | ".join(row),
-              flush=True)
+        print(f"backward{'_x' if need_x else ''} cap={cap} d={d} "
+              f"lanes={lanes} (picks {kr.backward_tile(cap, d, lanes)}): "
+              + " | ".join(row), flush=True)
 
 
 def main():
@@ -76,12 +94,12 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    if sys.argv[1:] == ["--backward-x"]:
+    if sys.argv[1:] in (["--backward-x"], ["--backward"]):
         kr.build_library()
         for ln in kr.build_info["log"].splitlines():
-            if "registers" in ln or "spill" in ln or "bwd_x" in ln:
+            if "registers" in ln or "spill" in ln or "bwd" in ln:
                 print(f"ptxas: {ln.strip()}")
-        sweep_backward_x(cs, kr)
+        sweep_backward(cs, kr, need_x=sys.argv[1] == "--backward-x")
         return 0
     for tile in sorted(set(TILES)):
         kr.build_library(tile)
@@ -94,32 +112,18 @@ def main():
         for lanes in (1, 4):
             x, mask, ls, amp, noise, _ = cs._inputs(
                 cap, d, cap + lanes, torch.float64, dev, lanes)
-            g = torch.as_tensor(np.random.default_rng(cap).normal(
-                size=(lanes, cap, cap)), device=dev)
             ref, row = None, []
             for tile in TILES:
                 k_out = torch.empty((lanes, cap, cap), dtype=torch.float64,
                                     device=dev)
-                scratch = torch.empty(
-                    kr.backward_scratch_size(cap, d, lanes, tile),
-                    dtype=torch.float64, device=dev)
-                g_ls = torch.empty((lanes, d), dtype=torch.float64,
-                                   device=dev)
-                g_amp = torch.empty((lanes,), dtype=torch.float64,
-                                    device=dev)
                 t_f = cs._device_ms(lambda: kr.launch_forward(
                     "rbf", x, mask, ls, amp, noise, k_out, tile))
-                t_b = cs._device_ms(lambda: kr.launch_backward(
-                    "rbf", x, mask, ls, amp, g, scratch, g_ls, g_amp, tile))
                 if ref is None:
-                    ref = (k_out.clone(), g_ls.clone())
-                elif not torch.equal(k_out, ref[0]) or float(
-                        (g_ls - ref[1]).abs().max()
-                        / ref[1].abs().max()) > 1e-10:
+                    ref = k_out.clone()
+                elif not torch.equal(k_out, ref):
                     raise AssertionError(f"tile {tile} cap={cap} d={d}: "
                                          "results differ")
-                row.append(f"t{tile} fwd {t_f * 1e3:.2f} us bwd "
-                           f"{t_b * 1e3:.2f} us")
+                row.append(f"t{tile} fwd {t_f * 1e3:.2f} us")
             print(f"cap={cap} d={d} lanes={lanes}: " + " | ".join(row),
                   flush=True)
     return 0
