@@ -36,6 +36,7 @@ from .ops.fantasy import (
 )
 from .parallel.mesh import (production_mesh, sharded_posterior,
                             sharded_posterior_cov, sharded_wip_core)
+from .utils import trace
 from .utils.log import get_logger
 from .utils.seed import get_numpy_rng
 
@@ -163,9 +164,10 @@ class AcquisitionFunction:
         x_batch, acq_vals = [np.asarray(x_next)], [float(v_next)]
 
         if n_batch > 1:
-            dummy = gpm.GP.dummy_like(gp)
-            mu = dummy.predict_mean_single(x_next)
-            dummy.update(np.asarray(x_next)[None, :], mu[None])
+            with trace.span("acq.hallucinate"):
+                dummy = gpm.GP.dummy_like(gp)
+                mu = dummy.predict_mean_single(x_next)
+                dummy.update(np.asarray(x_next)[None, :], mu[None])
             for _ in range(1, n_batch):
                 x_next, v_next = self.get_next_point(
                     dummy, acq_kwargs=acq_kwargs, maxiter=maxiter,
@@ -173,8 +175,9 @@ class AcquisitionFunction:
                     early_stop_patience=early_stop_patience, rng=rng)
                 x_batch.append(np.asarray(x_next))
                 acq_vals.append(float(v_next))
-                mu = dummy.predict_mean_single(x_next)
-                dummy.update(np.asarray(x_next)[None, :], mu[None])
+                with trace.span("acq.hallucinate"):
+                    mu = dummy.predict_mean_single(x_next)
+                    dummy.update(np.asarray(x_next)[None, :], mu[None])
 
         return np.array(x_batch), np.array(acq_vals)
 
@@ -251,15 +254,18 @@ class WeightedIntegratedPosteriorBase(AcquisitionFunction):
 
         rng = rng if rng is not None else get_numpy_rng()
         acq_kwargs = dict(acq_kwargs or {})
-        mc_np = get_mc_points(acq_kwargs.get("mc_samples"),
-                              mc_points_size=int(acq_kwargs.get(
-                                  "mc_points_size", 128)),
-                              rng=rng, gp=gp)
+        with trace.span("acq.mc_points"):
+            mc_np = get_mc_points(acq_kwargs.get("mc_samples"),
+                                  mc_points_size=int(acq_kwargs.get(
+                                      "mc_points_size", 128)),
+                                  rng=rng, gp=gp)
         mc_points = torch.as_tensor(mc_np, dtype=config.DTYPE,
                                     device=gp.device)
-        pts, vals = _wip_batch_core(gp, mc_points, self._use_std,
-                                    int(n_batch), production_mesh(gp.device))
-        return pts.cpu().numpy(), vals.cpu().numpy()
+        with trace.span("acq.sweep"):
+            pts, vals = _wip_batch_core(gp, mc_points, self._use_std,
+                                        int(n_batch),
+                                        production_mesh(gp.device))
+            return pts.cpu().numpy(), vals.cpu().numpy()
 
     def fun(self, x, gp, mc_points=None, k_train_mc=None):
         fv = gp.fantasy_var(x, mc_points, k_train_mc)
@@ -271,15 +277,23 @@ class WeightedIntegratedPosteriorBase(AcquisitionFunction):
                        verbose=True, early_stop_patience=25, rng=None):
         rng = rng if rng is not None else get_numpy_rng()
         acq_kwargs = dict(acq_kwargs or {})
-        mc_np = np.asarray(get_mc_points(
-            acq_kwargs.get("mc_samples"),
-            mc_points_size=int(acq_kwargs.get("mc_points_size", 128)),
-            rng=rng, gp=gp))
+        with trace.span("acq.pick"):
+            return self._pick(gp, acq_kwargs, maxiter, rng)
+
+    def _pick(self, gp, acq_kwargs, maxiter, rng):
+        """The pool's best candidate by the WIP sweep, polished by L-BFGS
+        below ``REFINE_MAX_N`` GP points."""
+        with trace.span("acq.mc_points"):
+            mc_np = np.asarray(get_mc_points(
+                acq_kwargs.get("mc_samples"),
+                mc_points_size=int(acq_kwargs.get("mc_points_size", 128)),
+                rng=rng, gp=gp))
         mc_points = torch.as_tensor(mc_np, dtype=config.DTYPE,
                                     device=gp.device)
-        acq_vals, V, var = _wip_sweep_core(gp, mc_points, self._use_std,
-                                           production_mesh(gp.device))
-        acq_np = acq_vals.cpu().numpy()
+        with trace.span("acq.sweep"):
+            acq_vals, V, var = _wip_sweep_core(gp, mc_points, self._use_std,
+                                               production_mesh(gp.device))
+            acq_np = acq_vals.cpu().numpy()
         i_best = int(np.argmin(acq_np))
         acq_min = float(acq_np[i_best])
         x0_np = mc_np[i_best]
@@ -288,9 +302,11 @@ class WeightedIntegratedPosteriorBase(AcquisitionFunction):
         if gp.gp_size > REFINE_MAX_N:
             return x0_np, acq_min
 
-        x, f = _wip_refine_core(gp, mc_points[i_best][None, :], mc_points, V,
-                                var, self._use_std, int(maxiter))
-        f = float(f)
+        with trace.span("acq.refine", sync=True):
+            x, f = _wip_refine_core(gp, mc_points[i_best][None, :],
+                                    mc_points, V, var, self._use_std,
+                                    int(maxiter))
+            f = float(f)
         if f <= acq_min:
             return x.cpu().numpy(), f
         return x0_np, acq_min

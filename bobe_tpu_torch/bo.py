@@ -61,6 +61,7 @@ from .models.clf_gp import GPwithClassifier
 from .models.gp import GP
 from .parallel.pool import EvalPool, make_pool
 from .samplers import nested_sampling
+from .utils import trace
 from .utils.core import (get_threshold_for_nsigma, kl_divergence_gaussian,
                          resample_equal, scale_from_unit, scale_to_unit)
 from .utils.log import get_logger, update_verbosity
@@ -344,11 +345,14 @@ class BOBE:
         else:
             refit_threshold, maxiter, n_restarts = max(40, self.fit_n_points), 200, 4
 
-        self.gp.update(new_pts_u, np.asarray(new_vals).reshape(-1))
-        if self.n_points_since_last_fit >= refit_threshold:
-            log.info(f"Refitting GP hyperparameters with {self.gp.npoints} points")
-            self.gp.fit(n_restarts=n_restarts, maxiter=maxiter, rng=self.np_rng)
-            self.n_points_since_last_fit = 0
+        with trace.span("gp.update"):
+            self.gp.update(new_pts_u, np.asarray(new_vals).reshape(-1))
+            if self.n_points_since_last_fit >= refit_threshold:
+                log.info(f"Refitting GP hyperparameters with "
+                         f"{self.gp.npoints} points")
+                self.gp.fit(n_restarts=n_restarts, maxiter=maxiter,
+                            rng=self.np_rng)
+                self.n_points_since_last_fit = 0
         self.results_manager.end_timing("GP Training")
         self.results_manager.update_gp_hyperparams(
             step, self.gp.lengthscales.tolist(), self.gp.kernel_variance)
@@ -362,10 +366,11 @@ class BOBE:
         self.results_manager.start_timing("Acquisition Optimization")
         log.info(f"Optimizing acquisition '{self.acquisition.name}' "
                  f"for the next {n_batch} point(s)")
-        new_pts_u, acq_vals = self.acquisition.get_next_batch(
-            gp=self.gp, n_batch=n_batch, acq_kwargs=acq_kwargs,
-            n_restarts=n_restarts, maxiter=maxiter,
-            early_stop_patience=early_stop_patience, rng=self.np_rng)
+        with trace.span("acq.batch"):
+            new_pts_u, acq_vals = self.acquisition.get_next_batch(
+                gp=self.gp, n_batch=n_batch, acq_kwargs=acq_kwargs,
+                n_restarts=n_restarts, maxiter=maxiter,
+                early_stop_patience=early_stop_patience, rng=self.np_rng)
         self.results_manager.end_timing("Acquisition Optimization")
         acq_val = float(np.mean(acq_vals))
         if verbose:
@@ -657,15 +662,17 @@ class BOBE:
         # toward the additive main-thread wall time
         self.results_manager.start_timing(phase)
         try:
-            self.mc_samples = get_mc_samples(
-                self.gp, warmup_steps=self.num_hmc_warmup,
-                num_samples=self.num_hmc_samples, thinning=self.hmc_thinning,
-                num_chains=self.hmc_num_chains,
-                np_rng=np_rng if np_rng is not None else self.np_rng,
-                generator=(generator if generator is not None
-                           else new_torch_generator(self.device)),
-                method=self.mc_points_method,
-                warm_state=getattr(self, "_nuts_warm", None))
+            with trace.span("mc.refresh", sync=True):
+                self.mc_samples = get_mc_samples(
+                    self.gp, warmup_steps=self.num_hmc_warmup,
+                    num_samples=self.num_hmc_samples,
+                    thinning=self.hmc_thinning,
+                    num_chains=self.hmc_num_chains,
+                    np_rng=np_rng if np_rng is not None else self.np_rng,
+                    generator=(generator if generator is not None
+                               else new_torch_generator(self.device)),
+                    method=self.mc_points_method,
+                    warm_state=getattr(self, "_nuts_warm", None))
             # the adapted EHMC/NUTS kernel: the next refresh re-warms from
             # it (a short fixed-mass step-size re-adaptation) instead of a
             # full warmup against a barely changed surrogate posterior
@@ -683,8 +690,11 @@ class BOBE:
         gen = new_torch_generator(self.device)
         child_rng = self.np_rng.spawn(1)[0]
         holder = {}
+        request = trace.current_request()
 
         def _run():
+            # the refresh's spans carry the iteration that started it
+            trace.adopt(request)
             try:
                 self._refresh_mc_samples(np_rng=child_rng, generator=gen,
                                          phase="MCMC Sampling (overlapped)")
@@ -698,7 +708,8 @@ class BOBE:
 
     def _join_refresh(self, holder):
         self.results_manager.start_timing("MCMC Join Wait")
-        holder["thread"].join()
+        with trace.span("mc.join_wait"):
+            holder["thread"].join()
         self.results_manager.end_timing("MCMC Join Wait")
         if "error" in holder:
             log.warning(f"async MC refresh failed ({holder['error']!r}); "
@@ -721,64 +732,67 @@ class BOBE:
 
         while not self.converged:
             ii += 1
-            self.n_points_since_last_ns += self.batch_size
-            ns_flag = (self.n_points_since_last_ns >= self.ns_n_points
-                       and current_evals >= self.min_evals)
-            log.info(f"Iteration {ii} of {acq_name}, objective evals "
-                     f"{current_evals}/{self.max_evals}")
+            with trace.span("bo.iteration", request=ii):
+                self.n_points_since_last_ns += self.batch_size
+                ns_flag = (self.n_points_since_last_ns >= self.ns_n_points
+                           and current_evals >= self.min_evals)
+                log.info(f"Iteration {ii} of {acq_name}, objective evals "
+                         f"{current_evals}/{self.max_evals}")
 
-            acq_kwargs = {"mc_samples": self.mc_samples,
-                          "mc_points_size": self.mc_points_size}
-            new_pts_u, acq_vals = self.get_next_batch(
-                acq_kwargs, n_batch=self.batch_size, n_restarts=1, maxiter=100,
-                early_stop_patience=10, step=ii)
-            # the MC-pool refresh runs concurrently with the likelihood
-            # batch; NS iterations must sample the post-update surrogate, so
-            # they never overlap the refresh
-            will_ns = ns_flag and (acq_vals[-1] <= self.logz_threshold)
-            refresh_job = None if will_ns else self._start_refresh_async()
-            new_vals = self.evaluate_likelihood(new_pts_u, ii)
-            if refresh_job is not None:
-                self._join_refresh(refresh_job)
-            current_evals += self.batch_size
-            self.update_gp(new_pts_u, new_vals, step=ii)
-            self.results_manager.update_best_loglike(ii, self.best_f)
+                acq_kwargs = {"mc_samples": self.mc_samples,
+                              "mc_points_size": self.mc_points_size}
+                new_pts_u, acq_vals = self.get_next_batch(
+                    acq_kwargs, n_batch=self.batch_size, n_restarts=1,
+                    maxiter=100, early_stop_patience=10, step=ii)
+                # the MC-pool refresh runs concurrently with the likelihood
+                # batch; NS iterations must sample the post-update
+                # surrogate, so they never overlap the refresh
+                will_ns = ns_flag and (acq_vals[-1] <= self.logz_threshold)
+                refresh_job = None if will_ns else self._start_refresh_async()
+                new_vals = self.evaluate_likelihood(new_pts_u, ii)
+                if refresh_job is not None:
+                    self._join_refresh(refresh_job)
+                current_evals += self.batch_size
+                self.update_gp(new_pts_u, new_vals, step=ii)
+                self.results_manager.update_best_loglike(ii, self.best_f)
 
-            if will_ns:
-                self.results_manager.start_timing("Nested Sampling")
-                ns_samples, logz_dict, ns_success = nested_sampling(
-                    gp=self.gp, mode="convergence", dlogz=0.01,
-                    equal_weights=False, rng=self.np_rng)
-                self.results_manager.end_timing("Nested Sampling")
-                logz_str = ", ".join(f"{k}={logz_dict[k]:.4f}"
-                                     for k in logz_keys if k in logz_dict)
-                log.info(f"NS success = {ns_success}, LogZ info: {logz_str}")
-                self.ns_samples = ns_samples
-                if ns_success:
-                    eq_x, eq_l = resample_equal(
-                        ns_samples["x"], ns_samples["logl"],
-                        weights=ns_samples["weights"], rng=self.np_rng)
-                    self.mc_samples = {"x": eq_x, "logl": eq_l,
-                                       "weights": np.ones(eq_x.shape[0]),
-                                       "method": "NS",
-                                       "best": ns_samples["best"]}
-                    self.results_dict["logz"] = logz_dict
-                    self.converged = self.check_convergence_logz(
-                        ii, logz_dict, eq_x, eq_l)
-                    if self.converged:
-                        self.termination_reason = "LogZ converged"
-                        self.results_dict["termination_reason"] = \
-                            self.termination_reason
-                self.n_points_since_last_ns = 0
+                if will_ns:
+                    self.results_manager.start_timing("Nested Sampling")
+                    ns_samples, logz_dict, ns_success = nested_sampling(
+                        gp=self.gp, mode="convergence", dlogz=0.01,
+                        equal_weights=False, rng=self.np_rng)
+                    self.results_manager.end_timing("Nested Sampling")
+                    logz_str = ", ".join(f"{k}={logz_dict[k]:.4f}"
+                                         for k in logz_keys if k in logz_dict)
+                    log.info(f"NS success = {ns_success}, "
+                             f"LogZ info: {logz_str}")
+                    self.ns_samples = ns_samples
+                    if ns_success:
+                        eq_x, eq_l = resample_equal(
+                            ns_samples["x"], ns_samples["logl"],
+                            weights=ns_samples["weights"], rng=self.np_rng)
+                        self.mc_samples = {"x": eq_x, "logl": eq_l,
+                                           "weights": np.ones(eq_x.shape[0]),
+                                           "method": "NS",
+                                           "best": ns_samples["best"]}
+                        self.results_dict["logz"] = logz_dict
+                        self.converged = self.check_convergence_logz(
+                            ii, logz_dict, eq_x, eq_l)
+                        if self.converged:
+                            self.termination_reason = "LogZ converged"
+                            self.results_dict["termination_reason"] = \
+                                self.termination_reason
+                    self.n_points_since_last_ns = 0
 
-            log.info(f"Current best point {self.best} with value = "
-                     f"{self.best_f:.6f} (iteration {self.best_pt_iteration})")
-            if self.save and ii % self.save_step == 0:
-                self.results_manager.save_intermediate(gp=self.gp)
-            if self.converged:
-                break
-            if self.check_max_evals_and_gpsize(current_evals):
-                break
+                log.info(f"Current best point {self.best} with value = "
+                         f"{self.best_f:.6f} "
+                         f"(iteration {self.best_pt_iteration})")
+                if self.save and ii % self.save_step == 0:
+                    self.results_manager.save_intermediate(gp=self.gp)
+                if self.converged:
+                    break
+                if self.check_max_evals_and_gpsize(current_evals):
+                    break
 
         self.current_iteration = ii
 

@@ -69,7 +69,8 @@ def run_ensemble(vg, init_z, generator: torch.Generator, num_warmup=128,
     over the (short) ``num_warmup``: the warm BO refresh. Returns (zs
     (num_samples, C, d), logps (num_samples, C), diag) with mean_accept,
     n_divergent, step_size, the mass, last_z, and ``n_leapfrog`` (host
-    int): the lockstep leapfrog steps of the call."""
+    int): the lockstep leapfrog steps of the call, ``n_leapfrog_warmup``
+    those of its warmup."""
     C, d = init_z.shape
     dt, dev = init_z.dtype, init_z.device
     n_trans = num_warmup + num_samples * thinning
@@ -144,5 +145,6 @@ def run_ensemble(vg, init_z, generator: torch.Generator, num_warmup=128,
     diag = {"mean_accept": sum_acc / max(C * num_samples * thinning, 1),
             "n_divergent": n_div, "step_size": eps_final,
             "mass_inv": mass.inv, "mass_chol": mass.chol_mass, "last_z": z,
-            "n_leapfrog": n_leapfrog}
+            "n_leapfrog": n_leapfrog,
+            "n_leapfrog_warmup": sum(n_leaps[:num_warmup])}
     return torch.stack(zs), torch.stack(logps), diag

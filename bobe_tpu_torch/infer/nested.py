@@ -37,6 +37,7 @@ import torch
 
 from .. import config
 from ..ops import chol as chol_ops
+from ..utils import trace
 from ..utils.log import get_logger
 from ..utils.seed import split_generator
 from . import integrals
@@ -120,10 +121,16 @@ def _slice_lanes(loglike_fn, gen, x_cur, l_cur, lstar, n_repeats: int,
     lanes = torch.arange(n, device=dev)
     steps = torch.arange(spec, device=dev)
     it = 0
+    # an inner iteration's span runs from after one host read of the lanes'
+    # activity to the next, which ends its device work
+    inner = trace.NULL
     while it < n_repeats * max_shrink:
         active = rep < n_repeats
-        if not bool(active.any()):
+        stop = not bool(active.any())
+        inner.close()
+        if stop:
             break
+        inner = trace.span("ns.inner")
         u = torch.rand((spec, n), generator=gen, dtype=dt, device=dev)
         ts, lo_end, hi_end = _spec_candidates(u, lo, hi, spec)
         x_try = torch.clamp(x_cur[:, None, :] + ts[..., None] * e[:, None, :],
@@ -157,6 +164,7 @@ def _slice_lanes(loglike_fn, gen, x_cur, l_cur, lstar, n_repeats: int,
         hi = torch.where(complete, hi_new, hi)
         shrink = torch.where(complete, torch.zeros_like(shrink), shrink)
         it += 1
+    inner.close()
     return x_cur, l_cur, nev, it
 
 
@@ -234,34 +242,36 @@ def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
     dead_x, dead_logl, dead_lv = [], [], []
     n_dead = n_iter = n_inner = 0
     while True:
-        delta = torch.logaddexp(logz, torch.max(live_logl) + logvol) - logz
-        delta_h, calls_h = torch.stack([delta, calls.to(dt)]).tolist()
-        if not (delta_h > dlogz and n_dead + K <= max_dead
-                and calls_h < maxcall):
-            break
-        order = torch.argsort(live_logl, stable=True)
-        kill_idx = order[:K]
-        lstar = live_logl[order[K - 1]]
-        lv_batch = logvol - hs
-        dl = live_logl[kill_idx]
-        dead_x.append(live_x[kill_idx])
-        dead_logl.append(dl)
-        dead_lv.append(lv_batch)
-        # quick rectangle logz accumulation (stopping rule only)
-        lv_prev = torch.cat([logvol[None], lv_batch[:-1]])
-        logdvol = lv_prev + torch.log1p(
-            -torch.exp(torch.clamp(lv_batch - lv_prev, max=-1e-12)))
-        logz = torch.logaddexp(logz, torch.logsumexp(dl + logdvol, dim=0))
-        x_new, l_new, rep_calls, inner = _replace_batch(
-            loglike_fn, generator, live_x, live_logl, order[K:], lstar, K,
-            int(n_repeats), int(max_shrink), spec)
-        live_x = live_x.index_copy(0, kill_idx, x_new)
-        live_logl = live_logl.index_copy(0, kill_idx, l_new)
-        n_dead += K
-        logvol = logvol - hs[-1]
-        calls = calls + rep_calls
-        n_iter += 1
-        n_inner += inner
+        # one outer step: the stopping read, the kill, the replacement
+        with trace.span("ns.outer"):
+            delta = torch.logaddexp(logz, torch.max(live_logl) + logvol) - logz
+            delta_h, calls_h = torch.stack([delta, calls.to(dt)]).tolist()
+            if not (delta_h > dlogz and n_dead + K <= max_dead
+                    and calls_h < maxcall):
+                break
+            order = torch.argsort(live_logl, stable=True)
+            kill_idx = order[:K]
+            lstar = live_logl[order[K - 1]]
+            lv_batch = logvol - hs
+            dl = live_logl[kill_idx]
+            dead_x.append(live_x[kill_idx])
+            dead_logl.append(dl)
+            dead_lv.append(lv_batch)
+            # quick rectangle logz accumulation (stopping rule only)
+            lv_prev = torch.cat([logvol[None], lv_batch[:-1]])
+            logdvol = lv_prev + torch.log1p(
+                -torch.exp(torch.clamp(lv_batch - lv_prev, max=-1e-12)))
+            logz = torch.logaddexp(logz, torch.logsumexp(dl + logdvol, dim=0))
+            x_new, l_new, rep_calls, inner = _replace_batch(
+                loglike_fn, generator, live_x, live_logl, order[K:], lstar, K,
+                int(n_repeats), int(max_shrink), spec)
+            live_x = live_x.index_copy(0, kill_idx, x_new)
+            live_logl = live_logl.index_copy(0, kill_idx, l_new)
+            n_dead += K
+            logvol = logvol - hs[-1]
+            calls = calls + rep_calls
+            n_iter += 1
+            n_inner += inner
 
     cat = lambda parts, shape: (torch.cat(parts).cpu().numpy() if parts
                                 else np.zeros(shape))

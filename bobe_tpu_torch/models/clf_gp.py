@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.core import get_threshold_for_nsigma
 from ..utils.log import get_logger
 from ..utils.seed import get_numpy_rng
@@ -108,7 +109,8 @@ class GPwithClassifier(GP):
                      f"use size ({self.clf_use_size}); enabling classifier.")
             self.use_clf = True
         if self.use_clf:
-            self._train_classifier()
+            with trace.span("clf.train"):
+                self._train_classifier()
 
     def _train_classifier(self):
         labels = np.where(

@@ -41,6 +41,7 @@ from ..ops import kernels as kr
 from ..ops import mll as mll_ops
 from ..ops import optimize as opt_ops
 from ..ops.fantasy import fantasy_var_single, posterior_batch
+from ..utils import trace
 from ..utils.core import atomic_write
 from ..utils.log import get_logger
 from ..utils.seed import get_numpy_rng
@@ -861,8 +862,9 @@ class GP:
         new_x = self._as_points(new_x)
         new_y = torch.as_tensor(new_y, dtype=config.DTYPE,
                                 device=self.device).reshape(-1)
-        self._grow_to(self.gp_size + new_x.shape[0])
-        self.state = extend(self.state, self.cfg, new_x, new_y)
+        with trace.span("gp.extend"):
+            self._grow_to(self.gp_size + new_x.shape[0])
+            self.state = extend(self.state, self.cfg, new_x, new_y)
 
     def recompute_cholesky(self):
         self.state = refresh(self.state, self.cfg)
@@ -883,9 +885,11 @@ class GP:
                 log.warning(f"optimizer_options {sorted(unknown)} are not "
                             "supported and are ignored (supported: maxiter, "
                             "n_restarts)")
-        self.state, info = fit(self.state, self.cfg, x0=x0, maxiter=maxiter,
-                               n_restarts=n_restarts, rng=rng,
-                               optimizer=self.optimizer_method)
+        with trace.span("gp.fit", sync=True) as sp:
+            sp.count("restarts", n_restarts)
+            self.state, info = fit(self.state, self.cfg, x0=x0,
+                                   maxiter=maxiter, n_restarts=n_restarts,
+                                   rng=rng, optimizer=self.optimizer_method)
         # distinct optimizer basins of this fit, best-first: read by the
         # evidence bounds (samplers.nested_sampling, dlogz_hyp)
         self._fit_basins = info.get("basins") or []

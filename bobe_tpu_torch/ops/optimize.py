@@ -38,6 +38,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.log import get_logger
 
 log = get_logger("optim")
@@ -188,11 +189,15 @@ def minimize_restarts(
     bounds_arr = setup_bounds(bounds, p, dtype=dt, device=dev)
     if bounds_arr is not None:
         z0 = _to_z(x0, bounds_arr)
-        obj = lambda z: fun(_to_x(torch.clamp(z, -_Z_CLIP, _Z_CLIP),
-                                  bounds_arr))
+        to_x = lambda z: _to_x(torch.clamp(z, -_Z_CLIP, _Z_CLIP), bounds_arr)
     else:
         z0 = x0
-        obj = fun
+        to_x = lambda z: z
+
+    def obj(z):
+        # every objective call counts on the open span (gp.fit, acq.refine)
+        trace.count("evals")
+        return fun(to_x(z))
 
     def vg(z):
         with torch.enable_grad():

@@ -46,6 +46,7 @@ from .infer.nuts import run_chain
 from .models import gp as gpm
 from .models.classifiers import predict_proba_apply
 from .parallel.mesh import production_mesh, sharded_nuts, sharded_target
+from .utils import trace
 from .utils.core import renormalise_log_weights, resample_equal
 from .utils.log import get_logger
 from .utils.seed import get_numpy_rng, new_torch_generator, split_generator
@@ -79,6 +80,7 @@ def ns_settings(mode: str, ndim: int) -> Tuple[int, float, int]:
     return max(500, 40 * ndim), 0.01, int(5e6)
 
 
+@trace.traced("ns.seed")
 def _seed_live_points(gp, loglike, nlive, ndim, rng):
     """Live seeding with exact plateau volume accounting: live points are
     rejection-seeded strictly above the surrogate's floor (``gp.minus_inf``,
@@ -99,12 +101,16 @@ def _seed_live_points(gp, loglike, nlive, ndim, rng):
 
     feas_x, feas_l = [], []
     n_drawn = n_feas = 0
+    trace.count("live", nlive)
     for _ in range(maxtries):
         x = rng.uniform(size=(nlogl, ndim))
         logl = _loglike_chunked(x)
         ok = logl > floor
+        n_ok = int(ok.sum())
         n_drawn += nlogl
-        n_feas += int(ok.sum())
+        n_feas += n_ok
+        trace.count("draws", nlogl)
+        trace.count("feasible", n_ok)
         feas_x.append(x[ok]), feas_l.append(logl[ok])
         if n_feas >= nlive:
             break
@@ -138,6 +144,7 @@ def _seed_live_points(gp, loglike, nlive, ndim, rng):
     return lx, ll, 0.0, 0.0
 
 
+@trace.traced("ns.evidence", fresh="evidence")
 def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
                     dlogz: Optional[float] = None, dynamic: bool = False,
                     maxcall: Optional[int] = None, equal_weights: bool = False,
@@ -197,9 +204,11 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
             # each repeat an independent realisation, its own live seeding
             live_x, live_logl, logvol0, var_logvol0 = _seed_live_points(
                 gp, loglike, nlive, ndim, rng)
-        res = runner(apply_fn, ctx, ndim, g, nlive=nlive, dlogz=dlogz,
-                     maxcall=maxcall, live_x=live_x, live_logl=live_logl,
-                     rng=rng, logvol0=logvol0, **ns_kwargs)
+        with trace.span("ns.run"):
+            res = runner(apply_fn, ctx, ndim, g, nlive=nlive, dlogz=dlogz,
+                         maxcall=maxcall, live_x=live_x,
+                         live_logl=live_logl, rng=rng, logvol0=logvol0,
+                         **ns_kwargs)
         msg = (f"NS ({mode}): {res.n_iter} outer / {res.n_inner} inner "
                f"iterations, {res.n_calls} surrogate calls, "
                f"{len(res.dead_logl)} points, quick logz={res.logz:.3f}")
@@ -236,6 +245,7 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
         err_nlive = res.nlive_schedule if dynamic else res.nlive
 
     # ---- evidence + GP-uncertainty bounds
+    bounds_span = trace.span("ns.bounds", sync=True)
     var = gp.predict_var_batched(dead_x).cpu().numpy()
     sigma = np.sqrt(np.clip(var, 0.0, None))
     # LOO calibration: scale sigma by the RMS leave-one-out z-score when it
@@ -300,6 +310,7 @@ def nested_sampling(gp, mode: str = "acq", ndim: Optional[int] = None,
                     "n_iter": int(sum(r.n_iter for r in results)),
                     "n_inner": int(sum(r.n_inner for r in results)),
                     "n_calls": int(sum(r.n_calls for r in results))}
+    bounds_span.close()
     return samples_dict, logz_dict, success
 
 
@@ -432,6 +443,13 @@ def _warm_kernel_tuple(warm_state, device):
                  for k in ("step_size", "mass_inv", "mass_chol"))
 
 
+def _warm_outcome(low_accept: bool, divergent: bool) -> str:
+    """The ``outcome`` of an ``mc.warm`` span whose warm run ran."""
+    if low_accept:
+        return "rejected_accept"
+    return "rejected_divergence" if divergent else "kept"
+
+
 def _bundle_samples(gp, zs, diag, kind, num_chains, dense_mass, temp) -> Dict:
     """The samples dict of the JAX package (x / logp / best / method,
     diagnostics, warm_state), in numpy. 'logp' is the untempered (and, over
@@ -476,11 +494,13 @@ def sample_gp_nuts(gp, np_rng=None, generator: Optional[torch.Generator] = None,
     # default_kind="nuts": warm states without a 'kind' field are NUTS's
     warm_ok = _warm_state_matches(warm_state, "nuts", num_chains, gp.ndim,
                                   dense_mass, temp, default_kind="nuts")
+    warm = trace.span("mc.warm") if warm_ok else trace.NULL
     if warm_ok and getattr(gp, "_clf_ctx", None) is not None and \
             _plateau_frac_ok(_logprob_vg(gp, temp), warm_state, gp, temp) < 1.0:
         log.debug("warm NUTS rejected: a cached chain end now falls in "
                   "the classifier's infeasible region")
         warm_ok = False
+        warm.set("outcome", "rejected_plateau")
     common = dict(num_samples=int(num_samples), thinning=int(thinning),
                   dense_mass=bool(dense_mass), max_depth=int(max_tree_depth))
     if warm_ok:
@@ -491,17 +511,24 @@ def sample_gp_nuts(gp, np_rng=None, generator: Optional[torch.Generator] = None,
             num_warmup=max(32, int(warmup_steps) // 4),
             warm=_warm_kernel_tuple(warm_state, gp.device), adapt_mass=False,
             **common)
+        warm.count("leapfrog", diag["n_leapfrog"])
         accept = float(torch.mean(diag["mean_accept"]))
         div_rate = float(torch.sum(diag["n_divergent"])) / max(
             1, num_chains * int(num_samples))
-        if accept < 0.6 or div_rate > 0.05:
+        outcome = _warm_outcome(accept < 0.6, div_rate > 0.05)
+        warm.set("outcome", outcome)
+        if outcome != "kept":
             log.debug(f"warm NUTS rejected (accept={accept:.2f}, "
                       f"div={div_rate:.3f}); falling back to cold warmup")
             warm_ok = False
+    warm.close()
     if not warm_ok:
-        zs, _, diag = _maybe_shard_chains(
-            run_chain, make_vg, ctx, _cold_logit_inits(gp, num_chains, np_rng),
-            gens, num_warmup=int(warmup_steps), **common)
+        with trace.span("mc.cold", sync=True) as cold:
+            zs, _, diag = _maybe_shard_chains(
+                run_chain, make_vg, ctx,
+                _cold_logit_inits(gp, num_chains, np_rng), gens,
+                num_warmup=int(warmup_steps), **common)
+            cold.count("leapfrog", diag["n_leapfrog"])
     out = _bundle_samples(gp, zs, diag, "nuts", num_chains, dense_mass, temp)
     out["diagnostics"].update(n_leapfrog=diag["n_leapfrog"], warm=warm_ok)
     log.debug(f"NUTS: mean accept="
@@ -544,6 +571,7 @@ def sample_gp_ensemble(gp, np_rng=None,
                   dense_mass=bool(dense_mass), num_leapfrog=int(num_leapfrog))
     warm_ok = _warm_state_matches(warm_state, "ehmc", nc, gp.ndim,
                                   dense_mass, temp)
+    warm = trace.span("mc.warm") if warm_ok else trace.NULL
     if warm_ok and getattr(gp, "_clf_ctx", None) is not None:
         # the lockstep ensemble tolerates a few stranded chains (they
         # re-enter during the re-adaptation): 0.9 where NUTS needs all
@@ -552,6 +580,7 @@ def sample_gp_ensemble(gp, np_rng=None,
             log.debug(f"warm ensemble rejected: {1 - frac_ok:.0%} of chain "
                       "ends now infeasible under the retrained classifier")
             warm_ok = False
+            warm.set("outcome", "rejected_plateau")
     if warm_ok:
         z0 = torch.as_tensor(np.array(warm_state["last_z"]),
                              dtype=config.DTYPE, device=gp.device)
@@ -559,16 +588,24 @@ def sample_gp_ensemble(gp, np_rng=None,
             run_ensemble, make_vg, ctx, z0, gen, num_warmup=24,
             warm=_warm_kernel_tuple(warm_state, gp.device), adapt_mass=False,
             **common)
+        warm.count("leapfrog", diag["n_leapfrog"])
         accept = float(diag["mean_accept"])
         div_rate = float(diag["n_divergent"]) / max(1, nc * kept * thinning)
-        if accept < 0.5 or div_rate > 0.05:
+        outcome = _warm_outcome(accept < 0.5, div_rate > 0.05)
+        warm.set("outcome", outcome)
+        if outcome != "kept":
             log.debug(f"warm ensemble rejected (accept={accept:.2f}, "
                       f"div={div_rate:.3f}); cold restart")
             warm_ok = False
+    warm.close()
     if not warm_ok:
-        zs, _, diag = _maybe_shard_chains(
-            run_ensemble, make_vg, ctx, _cold_logit_inits(gp, nc, np_rng), gen,
-            num_warmup=cold_warmup, **common)
+        with trace.span("mc.cold", sync=True) as cold:
+            zs, _, diag = _maybe_shard_chains(
+                run_ensemble, make_vg, ctx,
+                _cold_logit_inits(gp, nc, np_rng), gen,
+                num_warmup=cold_warmup, **common)
+            cold.count("leapfrog", diag["n_leapfrog"])
+            cold.count("leapfrog_warmup", diag["n_leapfrog_warmup"])
     out = _bundle_samples(gp, zs, diag, "ehmc", nc, dense_mass, temp)
     out["diagnostics"].update(n_leapfrog=diag["n_leapfrog"], warm=warm_ok)
     log.debug(f"EHMC: accept={float(out['diagnostics']['mean_accept']):.3f}, "

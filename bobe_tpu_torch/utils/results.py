@@ -1,7 +1,8 @@
 """Run-state tracking, persistence, checkpoint/resume and exports.
 
 Copied from bobe_tpu/utils/results.py, without the JAX profiler hooks:
-per-phase wall-time ledger,
+per-phase wall-time ledger (monotonic, its phases the tracer's top-level
+spans),
 convergence/acquisition/hyperparameter/best-loglike/KL time series, resume
 machinery, and the full set of output artifacts — pickle, GetDist-format
 chain files (.txt/.paramnames/.ranges — written directly, getdist itself is
@@ -19,6 +20,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from . import trace
 from .core import atomic_write
 from .log import get_logger
 
@@ -101,9 +103,9 @@ class BOBEResults:
 
         # timing
         self._phase_times = {p: 0.0 for p in PHASES}
-        self._phase_starts: Dict[str, float] = {}
+        self._phase_starts: Dict[str, Any] = {}  # (perf ns, span)
         self._phase_last: Dict[str, float] = {}  # seconds of the last span
-        self._t0 = time.time()
+        self._t0 = time.perf_counter()
 
         self._resumed = False
         if resume_from_existing:
@@ -120,13 +122,23 @@ class BOBEResults:
 
     # ------------------------------------------------------------- timing
 
+    # Each phase is a top-level span of the tracer (utils/trace.py) on the
+    # ledger's own clock readings, so the two sum alike; with tracing on, a
+    # phase's end waits for its device work.
+
     def start_timing(self, phase: str):
-        self._phase_starts[phase] = time.time()
+        t0 = time.perf_counter_ns()
+        self._phase_starts[phase] = (t0, trace.span(phase, sync=True,
+                                                    start_ns=t0))
 
     def end_timing(self, phase: str):
-        t0 = self._phase_starts.pop(phase, None)
-        if t0 is not None:
-            dt = time.time() - t0
+        started = self._phase_starts.pop(phase, None)
+        if started is not None:
+            t0, sp = started
+            t1 = sp.close()
+            if t1 is None:
+                t1 = time.perf_counter_ns()
+            dt = (t1 - t0) * 1e-9
             self._phase_times[phase] = self._phase_times.get(phase, 0.0) + dt
             self._phase_last[phase] = dt
 
@@ -135,7 +147,7 @@ class BOBEResults:
         return self._phase_last.get(phase, 0.0)
 
     def get_timing_summary(self) -> Dict[str, Any]:
-        total = time.time() - self._t0
+        total = time.perf_counter() - self._t0
         # "(overlapped)" phases ran concurrently with another tracked phase
         # (the async MC refresh overlaps the likelihood batch): they are
         # reported but excluded from the additive main-thread sum, or
@@ -224,7 +236,7 @@ class BOBEResults:
             "phase_times": self._phase_times,
             # cumulative wall so a resumed process reports run-total
             # percentages instead of phase_times/new-process-wall > 100%
-            "elapsed_walltime": time.time() - self._t0,
+            "elapsed_walltime": time.perf_counter() - self._t0,
             "final_logz": self.final_logz,
             "gp_info": self.gp_info,
         }
@@ -258,7 +270,7 @@ class BOBEResults:
         # shift _t0 so total_runtime spans ALL process generations — the
         # restored phase_times are cumulative, and mixing them with a fresh
         # process wall made percentages exceed 100% and 'untracked' negative
-        self._t0 = time.time() - elapsed
+        self._t0 = time.perf_counter() - elapsed
 
     def _load_existing_results(self):
         fn = f"{self.base}_intermediate.json"
