@@ -21,6 +21,10 @@ over batched tensor ops with the same semantics:
 Each outer iteration reads the stopping quantities from the device once, and
 each inner iteration reads whether any lane is still active once: the host
 synchronises about (outer + inner) times per run (``NSResult.n_inner``).
+On a card without a mesh the inner iteration, which updates the lanes'
+buffers in place (``_slice_step``), is captured once per run as a CUDA graph
+(``_SliceGraph``) and replayed: one launch where the eager step makes about
+a hundred, with the same draws and the same arithmetic.
 
 With a ``mesh`` (parallel/mesh.py) every likelihood batch, the proposal
 batch of each inner iteration above all, is split over the mesh's devices,
@@ -30,6 +34,7 @@ so only where the batch runs changes.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -104,87 +109,237 @@ def _resolve_spec(spec, d: int) -> int:
     return max(1, int(spec))
 
 
+class _Lanes:
+    """The slice sampler's state over n lanes, updated in place by
+    :func:`_slice_step`: each lane's point ``x`` and value ``l``, direction
+    ``e`` and bracket [``lo``, ``hi``] along it, completed updates ``rep``
+    and shrinks of the current one ``shrink``; the surrogate calls ``nev``,
+    the threshold ``lstar``, and whether each lane (``active``) and any lane
+    (``any_active``) has updates left. The same buffers serve every
+    iteration, so a CUDA graph of the step replays on them."""
+
+    def __init__(self, n: int, d: int, spec: int, dtype, device):
+        f = dict(dtype=dtype, device=device)
+        i = dict(dtype=torch.int64, device=device)
+        b = dict(dtype=torch.bool, device=device)
+        self.x, self.e = torch.empty((n, d), **f), torch.empty((n, d), **f)
+        self.l, self.lo, self.hi = (torch.empty(n, **f) for _ in range(3))
+        self.lstar = torch.empty((), **f)
+        self.rep, self.shrink = torch.empty(n, **i), torch.empty(n, **i)
+        self.nev = torch.empty((), **i)
+        self.active = torch.empty(n, **b)
+        self.any_active = torch.empty((), **b)
+        self.lanes = torch.arange(n, device=device)
+        self.steps = torch.arange(spec, device=device)
+
+    def load(self, x, l, lstar, n_repeats: int, draw_dirs):
+        """Start every lane at (x, l) above ``lstar``, its first direction
+        drawn at x and its bracket the direction's chord of the cube."""
+        self.x.copy_(x)
+        self.l.copy_(l)
+        self.lstar.copy_(lstar)
+        self.e.copy_(draw_dirs(self.x))
+        lo, hi = _chord_bounds(self.x, self.e)
+        self.lo.copy_(lo)
+        self.hi.copy_(hi)
+        self.rep.zero_()
+        self.shrink.zero_()
+        self.nev.zero_()
+        self.active.fill_(n_repeats > 0)
+        self.any_active.fill_(n_repeats > 0)
+
+
+def _slice_step(s: _Lanes, loglike_fn, gen, n_repeats: int, max_shrink: int,
+                spec: int, draw_dirs):
+    """One inner iteration of every lane, in place on ``s``: ``spec``
+    speculative candidates per active lane in one likelihood batch, the
+    first one above lstar accepted (or the bracket shrunk past them all),
+    and a lane that completed an update takes a new direction. Reads
+    nothing back to the host."""
+    n, d = s.x.shape
+    active = s.active
+    u = torch.rand((spec, n), generator=gen, dtype=s.x.dtype,
+                   device=s.x.device)
+    ts, lo_end, hi_end = _spec_candidates(u, s.lo, s.hi, spec)
+    x_try = torch.clamp(s.x[:, None, :] + ts[..., None] * s.e[:, None, :],
+                        0.0, 1.0).reshape(n * spec, d)
+    l_try = loglike_fn(x_try).reshape(n, spec)
+    # candidate s is reachable only while the shrink budget lasts
+    reachable = s.shrink[:, None] + s.steps[None, :] < max_shrink
+    acc = (l_try > s.lstar) & reachable
+    any_acc = torch.any(acc, dim=1)
+    first = torch.argmax(acc.to(torch.int8), dim=1)
+    ok = any_acc & active
+    # exact eval accounting: draws up to acceptance, or all reachable
+    # draws on full rejection
+    n_reach = torch.clamp(max_shrink - s.shrink, 0, spec)
+    used = torch.where(any_acc, first + 1, n_reach)
+    s.nev += torch.sum(torch.where(active, used, torch.zeros_like(used)))
+    x_acc = x_try.reshape(n, spec, d)[s.lanes, first]
+    l_acc = l_try[s.lanes, first]
+    torch.where(ok[:, None], x_acc, s.x, out=s.x)
+    torch.where(ok, l_acc, s.l, out=s.l)
+    nok = active & ~any_acc
+    torch.where(nok, lo_end, s.lo, out=s.lo)
+    torch.where(nok, hi_end, s.hi, out=s.hi)
+    torch.where(nok, s.shrink + n_reach, s.shrink, out=s.shrink)
+    complete = ok | (nok & (s.shrink >= max_shrink))
+    s.rep += complete.to(s.rep.dtype)
+    e_new = draw_dirs(s.x)
+    lo_new, hi_new = _chord_bounds(s.x, e_new)
+    torch.where(complete[:, None], e_new, s.e, out=s.e)
+    torch.where(complete, lo_new, s.lo, out=s.lo)
+    torch.where(complete, hi_new, s.hi, out=s.hi)
+    s.shrink.masked_fill_(complete, 0)
+    torch.lt(s.rep, n_repeats, out=s.active)
+    torch.any(s.active, out=s.any_active)
+
+
+class _SliceGraph:
+    """One run's CUDA graph of :func:`_slice_step` (``run_nested`` on a
+    card, without a mesh): the lanes' buffers and the live set's Cholesky
+    factor are the run's (``lanes``, ``hold_chol``), loaded anew at each
+    outer step. The step's first ``WARMUP`` calls run eagerly on a side stream,
+    the next is captured there (capture runs nothing) and then replayed, as
+    is every later call. The run's generator is registered with the graph,
+    so a replay draws the numbers an eager call would draw. ``close()``
+    frees the graph and its memory pool.
+
+    The side stream is one per device for the process, as
+    ``torch.cuda.graph``'s capture stream is: cuBLAS keeps a workspace for
+    every stream it has run on, so a stream per run would leave one behind
+    per run. One thread at a time warms up or captures on it."""
+
+    WARMUP = 1
+    _side_streams: dict = {}
+    _side_lock = threading.Lock()
+
+    def __init__(self, generator: torch.Generator):
+        self.gen = generator
+        self.device = generator.device
+        self.graph = None
+        self.warm = 0
+        self.captures = 0
+        self._lanes = None
+        self._chol = None
+
+    def lanes(self, n: int, d: int, spec: int, dtype) -> _Lanes:
+        if self._lanes is None:
+            self._lanes = _Lanes(n, d, spec, dtype, self.device)
+        return self._lanes
+
+    def hold_chol(self, chol):
+        """The live set's Cholesky factor, copied into the run's buffer."""
+        if self._chol is None:
+            self._chol = torch.empty_like(chol)
+        return self._chol.copy_(chol)
+
+    def run(self, step) -> bool:
+        """One call of ``step``; returns whether it was a graph replay."""
+        with torch.cuda.device(self.device):
+            if self.graph is None and self.warm < self.WARMUP:
+                self._on_side(step)
+                self.warm += 1
+                return False
+            if self.graph is None:
+                with trace.span("ns.capture"):
+                    self._on_side(step, capture=True)
+            self.graph.replay()
+        return True
+
+    def _on_side(self, step, capture: bool = False):
+        main = torch.cuda.current_stream()
+        with self._side_lock:
+            side = self._side_streams.get(self.device)
+            if side is None:
+                side = self._side_streams[self.device] = torch.cuda.Stream(
+                    device=self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                if not capture:
+                    step()
+                else:
+                    g = torch.cuda.CUDAGraph()
+                    g.register_generator_state(self.gen)
+                    g.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        step()
+                    finally:
+                        g.capture_end()
+                    self.graph = g
+                    self.captures += 1
+            main.wait_stream(side)
+
+    def close(self):
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+
+
 def _slice_lanes(loglike_fn, gen, x_cur, l_cur, lstar, n_repeats: int,
-                 max_shrink: int, spec: int, draw_dirs):
+                 max_shrink: int, spec: int, draw_dirs, graph=None):
     """``n_repeats`` constrained slice updates (logL > lstar) of every lane,
     the lanes in lockstep, each running its updates back to back; a lane's
     next direction comes from ``draw_dirs(x)`` ((n, d) directions at the
     lanes' current points). The host reads whether any lane is active once
-    an iteration. Returns (x, logl, n_evals (device), iterations)."""
+    an iteration. ``graph`` (a :class:`_SliceGraph`): the iterations run on
+    its buffers, replayed from its graph. Returns (x, logl, n_evals
+    (device), iterations)."""
     n, d = x_cur.shape
-    dev, dt = x_cur.device, x_cur.dtype
-    e = draw_dirs(x_cur)
-    lo, hi = _chord_bounds(x_cur, e)
-    rep = torch.zeros(n, dtype=torch.int64, device=dev)
-    shrink = torch.zeros(n, dtype=torch.int64, device=dev)
-    nev = torch.zeros((), dtype=torch.int64, device=dev)
-    lanes = torch.arange(n, device=dev)
-    steps = torch.arange(spec, device=dev)
+    if graph is None:
+        s = _Lanes(n, d, spec, x_cur.dtype, x_cur.device)
+    else:
+        s = graph.lanes(n, d, spec, x_cur.dtype)
+    s.load(x_cur, l_cur, lstar, n_repeats, draw_dirs)
+
+    def step():
+        _slice_step(s, loglike_fn, gen, n_repeats, max_shrink, spec,
+                    draw_dirs)
+
     it = 0
     # an inner iteration's span runs from after one host read of the lanes'
     # activity to the next, which ends its device work
     inner = trace.NULL
     while it < n_repeats * max_shrink:
-        active = rep < n_repeats
-        stop = not bool(active.any())
+        stop = not bool(s.any_active)
         inner.close()
         if stop:
             break
         inner = trace.span("ns.inner")
-        u = torch.rand((spec, n), generator=gen, dtype=dt, device=dev)
-        ts, lo_end, hi_end = _spec_candidates(u, lo, hi, spec)
-        x_try = torch.clamp(x_cur[:, None, :] + ts[..., None] * e[:, None, :],
-                            0.0, 1.0).reshape(n * spec, d)
-        l_try = loglike_fn(x_try).reshape(n, spec)
-        # candidate s is reachable only while the shrink budget lasts
-        reachable = shrink[:, None] + steps[None, :] < max_shrink
-        acc = (l_try > lstar) & reachable
-        any_acc = torch.any(acc, dim=1)
-        first = torch.argmax(acc.to(torch.int8), dim=1)
-        ok = any_acc & active
-        # exact eval accounting: draws up to acceptance, or all reachable
-        # draws on full rejection
-        n_reach = torch.clamp(max_shrink - shrink, 0, spec)
-        used = torch.where(any_acc, first + 1, n_reach)
-        nev = nev + torch.sum(torch.where(active, used, torch.zeros_like(used)))
-        x_acc = x_try.reshape(n, spec, d)[lanes, first]
-        l_acc = l_try[lanes, first]
-        x_cur = torch.where(ok[:, None], x_acc, x_cur)
-        l_cur = torch.where(ok, l_acc, l_cur)
-        nok = active & ~any_acc
-        lo = torch.where(nok, lo_end, lo)
-        hi = torch.where(nok, hi_end, hi)
-        shrink = torch.where(nok, shrink + n_reach, shrink)
-        complete = ok | (nok & (shrink >= max_shrink))
-        rep = rep + complete.to(rep.dtype)
-        e_new = draw_dirs(x_cur)
-        lo_new, hi_new = _chord_bounds(x_cur, e_new)
-        e = torch.where(complete[:, None], e_new, e)
-        lo = torch.where(complete, lo_new, lo)
-        hi = torch.where(complete, hi_new, hi)
-        shrink = torch.where(complete, torch.zeros_like(shrink), shrink)
+        if graph is None:
+            step()
+        elif graph.run(step):
+            inner.count("graph")
         it += 1
     inner.close()
-    return x_cur, l_cur, nev, it
+    if graph is None:
+        return s.x, s.l, s.nev, it
+    # the run's buffers are loaded again at the next outer step
+    return s.x.clone(), s.l.clone(), s.nev.clone(), it
 
 
 def _replace_batch(loglike_fn, gen, live_x, live_logl, survivor_idx, lstar,
-                   K: int, n_repeats: int, max_shrink: int, spec: int):
+                   K: int, n_repeats: int, max_shrink: int, spec: int, *,
+                   graph=None):
     """Evolve K clones of random survivors above lstar by slice sampling,
     with directions from the live set's covariance (fixed within the outer
-    step). Returns (x_new, l_new, n_evals (device), n_inner_iterations)."""
+    step); ``graph``: the run's :class:`_SliceGraph`, or None for eager
+    iterations. Returns (x_new, l_new, n_evals (device),
+    n_inner_iterations)."""
     nlive, d = live_x.shape
     dev, dt = live_x.device, live_x.dtype
     pick = torch.randint(0, nlive - K, (K,), generator=gen, device=dev)
     idx = survivor_idx[pick]
     chol = _live_cov_chol(live_x)
+    if graph is not None:
+        chol = graph.hold_chol(chol)
 
     def draw_dirs(x):
         z = torch.randn((K, d), generator=gen, dtype=dt, device=dev)
         return z @ chol.T
 
     return _slice_lanes(loglike_fn, gen, live_x[idx], live_logl[idx], lstar,
-                        n_repeats, max_shrink, spec, draw_dirs)
+                        n_repeats, max_shrink, spec, draw_dirs, graph=graph)
 
 
 def _loglike_fn(loglike_apply: Callable, ctx, mesh):
@@ -241,6 +396,9 @@ def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
     calls = torch.zeros((), dtype=torch.int64, device=dev)
     dead_x, dead_logl, dead_lv = [], [], []
     n_dead = n_iter = n_inner = 0
+    # on a card, without a mesh, the inner iterations replay a CUDA graph
+    graph = _SliceGraph(generator) if dev.type == "cuda" and mesh is None \
+        else None
     while True:
         # one outer step: the stopping read, the kill, the replacement
         with trace.span("ns.outer"):
@@ -264,7 +422,7 @@ def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
             logz = torch.logaddexp(logz, torch.logsumexp(dl + logdvol, dim=0))
             x_new, l_new, rep_calls, inner = _replace_batch(
                 loglike_fn, generator, live_x, live_logl, order[K:], lstar, K,
-                int(n_repeats), int(max_shrink), spec)
+                int(n_repeats), int(max_shrink), spec, graph=graph)
             live_x = live_x.index_copy(0, kill_idx, x_new)
             live_logl = live_logl.index_copy(0, kill_idx, l_new)
             n_dead += K
@@ -272,6 +430,9 @@ def run_nested(loglike_apply: Callable, ctx, d: int, generator: torch.Generator,
             calls = calls + rep_calls
             n_iter += 1
             n_inner += inner
+    if graph is not None:
+        trace.count("captures", graph.captures)
+        graph.close()
 
     cat = lambda parts, shape: (torch.cat(parts).cpu().numpy() if parts
                                 else np.zeros(shape))

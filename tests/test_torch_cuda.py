@@ -413,6 +413,84 @@ def test_backwards_interleaved_on_streams_on_card(cuda):
         assert int(tkr.ticket_buffer(s, 0).abs().sum()) == 0
 
 
+def _ns_surrogate(form, device):
+    """A small surrogate of each form the port builds: a plain GP, the
+    input-warped GP (warp away from the identity), and GPs gated by an SVM,
+    an MLP and an ellipsoid (a bump with a failure region at x0 > 0.7)."""
+    from bobe_tpu_torch.models.clf_gp import GPwithClassifier
+    from bobe_tpu_torch.utils.seed import set_global_seed
+
+    set_global_seed(41)   # the MLP's and the ellipsoid's training
+    rng = np.random.default_rng(41)
+    x = rng.uniform(size=(60, 2))
+    y = -30.0 * np.sum((x - np.array([0.45, 0.5])) ** 2, axis=1)
+    kw = dict(noise=1e-6, lengthscales=np.array([0.35, 0.4]),
+              kernel_variance=2.0, device=device)
+    if form == "plain":
+        return tgp.GP(train_x=x, train_y=y, **kw)
+    if form == "warp":
+        gp = tgp.GP(train_x=x, train_y=y, input_warp=True, **kw)
+        w = torch.tensor([0.3, -0.2], dtype=torch.float64, device=device)
+        gp.state = tgp.refresh(gp.state._replace(log_wa=w, log_wb=-w),
+                               gp.cfg)
+        return gp
+    y = np.where(x[:, 0] > 0.7, -1e5, y)
+    return GPwithClassifier(train_x=x, train_y=y, clf_type=form,
+                            clf_use_size=10, minus_inf=-1e5,
+                            clf_threshold=100.0, gp_threshold=200.0, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["plain", "warp", "svm", "nn", "ellipsoid"])
+def test_ns_graph_replays_match_eager_on_card(cuda, form, monkeypatch):
+    """run_nested on the card replays its inner iteration from one CUDA
+    graph per run; with the graph holder taken away it runs every
+    iteration eagerly. Same seeds, same surrogate: the dead points, their
+    values and volumes, the calls and the iterations are equal to the bit,
+    the run's generator ends in the same state, the run captured once and
+    every inner iteration after the eager warm-up was a replay."""
+    from bobe_tpu_torch import samplers as tsamp
+    from bobe_tpu_torch.infer import nested as tnest
+    from bobe_tpu_torch.utils import trace
+
+    gp = _ns_surrogate(form, cuda)
+    assert (getattr(gp, "_clf_ctx", None) is not None) == (
+        form in ("svm", "nn", "ellipsoid"))
+    apply_fn, ctx = tsamp._gp_loglike(gp)
+    live_x, live_l, logvol0, _ = tsamp._seed_live_points(
+        gp, lambda x: apply_fn(ctx, x), 60, 2, np.random.default_rng(3))
+
+    def run():
+        gen = torch.Generator(device=cuda).manual_seed(12)
+        trace.enable()
+        try:
+            with trace.span("ns.run"):
+                res = tnest.run_nested(apply_fn, ctx, 2, gen, dlogz=0.05,
+                                       live_x=live_x, live_logl=live_l,
+                                       logvol0=logvol0)
+            counters = trace.snapshot()["counters"]
+        finally:
+            trace.disable()
+        return res, gen.get_state(), counters
+
+    graphed, g_state, counters = run()
+    with monkeypatch.context() as mp:
+        mp.setattr(tnest, "_SliceGraph", lambda generator: None)
+        eager, e_state, e_counters = run()
+    for key in ("dead_x", "dead_logl", "logvol"):
+        np.testing.assert_array_equal(getattr(graphed, key),
+                                      getattr(eager, key), err_msg=key)
+    for key in ("n_calls", "n_iter", "n_inner", "logz"):
+        assert getattr(graphed, key) == getattr(eager, key), key
+    assert torch.equal(g_state, e_state)
+    assert graphed.n_iter > 2 and graphed.success
+    assert counters.get("ns.run.captures") == 1
+    assert counters.get("ns.inner.graph") == \
+        graphed.n_inner - tnest._SliceGraph.WARMUP
+    assert "ns.inner.graph" not in e_counters
+    assert "ns.run.captures" not in e_counters
+
+
 @pytest.mark.cuda
 def test_warp_fit_on_card(cuda):
     """A warp fit on the card runs every objective through the per-lane

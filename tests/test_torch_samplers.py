@@ -125,6 +125,176 @@ def test_slice_geometry_and_settings_match_jax():
         assert tnest._resolve_spec(None, d) == jnest._resolve_spec(None, d)
 
 
+def _frozen_slice_lanes(loglike_fn, gen, x_cur, l_cur, lstar, n_repeats,
+                        max_shrink, spec, draw_dirs, max_iter=None):
+    """The slice loop of infer/nested.py as it was before its body became
+    the in-place ``_slice_step``: out of place, the lanes' activity read
+    at the top of each iteration. Kept as the oracle of the rewrite;
+    ``max_iter`` stops it early. Returns its whole state."""
+    n, d = x_cur.shape
+    dev, dt = x_cur.device, x_cur.dtype
+    e = draw_dirs(x_cur)
+    lo, hi = tnest._chord_bounds(x_cur, e)
+    rep = torch.zeros(n, dtype=torch.int64, device=dev)
+    shrink = torch.zeros(n, dtype=torch.int64, device=dev)
+    nev = torch.zeros((), dtype=torch.int64, device=dev)
+    lanes = torch.arange(n, device=dev)
+    steps = torch.arange(spec, device=dev)
+    it = 0
+    limit = n_repeats * max_shrink if max_iter is None else max_iter
+    while it < limit:
+        active = rep < n_repeats
+        if not bool(active.any()):
+            break
+        u = torch.rand((spec, n), generator=gen, dtype=dt, device=dev)
+        ts, lo_end, hi_end = tnest._spec_candidates(u, lo, hi, spec)
+        x_try = torch.clamp(x_cur[:, None, :] + ts[..., None] * e[:, None, :],
+                            0.0, 1.0).reshape(n * spec, d)
+        l_try = loglike_fn(x_try).reshape(n, spec)
+        reachable = shrink[:, None] + steps[None, :] < max_shrink
+        acc = (l_try > lstar) & reachable
+        any_acc = torch.any(acc, dim=1)
+        first = torch.argmax(acc.to(torch.int8), dim=1)
+        ok = any_acc & active
+        n_reach = torch.clamp(max_shrink - shrink, 0, spec)
+        used = torch.where(any_acc, first + 1, n_reach)
+        nev = nev + torch.sum(torch.where(active, used, torch.zeros_like(used)))
+        x_acc = x_try.reshape(n, spec, d)[lanes, first]
+        l_acc = l_try[lanes, first]
+        x_cur = torch.where(ok[:, None], x_acc, x_cur)
+        l_cur = torch.where(ok, l_acc, l_cur)
+        nok = active & ~any_acc
+        lo = torch.where(nok, lo_end, lo)
+        hi = torch.where(nok, hi_end, hi)
+        shrink = torch.where(nok, shrink + n_reach, shrink)
+        complete = ok | (nok & (shrink >= max_shrink))
+        rep = rep + complete.to(rep.dtype)
+        e_new = draw_dirs(x_cur)
+        lo_new, hi_new = tnest._chord_bounds(x_cur, e_new)
+        e = torch.where(complete[:, None], e_new, e)
+        lo = torch.where(complete, lo_new, lo)
+        hi = torch.where(complete, hi_new, hi)
+        shrink = torch.where(complete, torch.zeros_like(shrink), shrink)
+        it += 1
+    return {"x": x_cur, "l": l_cur, "e": e, "lo": lo, "hi": hi, "rep": rep,
+            "shrink": shrink, "nev": nev, "it": it}
+
+
+def _bump(x):
+    """A narrow Gaussian bump: most slice candidates fall below a high
+    threshold, so brackets shrink and some lanes spend their budget."""
+    return -0.5 * torch.sum(((x - 0.5) / 0.08) ** 2, dim=-1)
+
+
+def _slice_case(seed, n=24, d=3):
+    rng = np.random.default_rng(seed)
+    x0 = torch.as_tensor(0.5 + rng.uniform(-0.05, 0.05, size=(n, d)))
+    chol = torch.linalg.cholesky(torch.as_tensor(
+        np.diag(rng.uniform(0.02, 0.2, size=d))))
+
+    def draw_dirs_of(gen):
+        return lambda x: torch.randn((n, d), generator=gen,
+                                     dtype=x.dtype) @ chol.T
+
+    lstar = torch.min(_bump(x0)) - 0.5
+    return x0, _bump(x0), lstar, draw_dirs_of
+
+
+@pytest.mark.parametrize("spec", [1, 4])
+def test_slice_step_matches_the_frozen_loop(spec):
+    """The in-place step body (``_slice_step`` on ``_Lanes``) against the
+    frozen out-of-place loop on the CPU, to the bit: after one iteration,
+    after a few (brackets shrunk, some lanes on their next update), and to
+    the end (``_slice_lanes``, some lanes out of shrink budget), with the
+    generator left in the same state."""
+    x0, l0, lstar, draw_dirs_of = _slice_case(21 + spec)
+    n, d = x0.shape
+    n_repeats, max_shrink = 3, 6
+    for k in (1, 4, None):
+        g_old = torch.Generator().manual_seed(5)
+        g_new = torch.Generator().manual_seed(5)
+        want = _frozen_slice_lanes(_bump, g_old, x0, l0, lstar, n_repeats,
+                                   max_shrink, spec, draw_dirs_of(g_old),
+                                   max_iter=k)
+        if k is None:
+            x, l, nev, it = tnest._slice_lanes(
+                _bump, g_new, x0, l0, lstar, n_repeats, max_shrink, spec,
+                draw_dirs_of(g_new))
+            got = {"x": x, "l": l, "nev": nev, "it": it}
+            # rejections happened: more calls than one per update
+            assert int(nev) > n * n_repeats
+        else:
+            s = tnest._Lanes(n, d, spec, x0.dtype, x0.device)
+            s.load(x0, l0, lstar, n_repeats, draw_dirs_of(g_new))
+            for _ in range(k):
+                tnest._slice_step(s, _bump, g_new, n_repeats, max_shrink,
+                                  spec, draw_dirs_of(g_new))
+            got = {key: getattr(s, key) for key in
+                   ("x", "l", "e", "lo", "hi", "rep", "shrink", "nev")}
+            got["it"] = k
+            assert bool(s.any_active) == bool((want["rep"] < n_repeats).any())
+            assert torch.equal(s.active, want["rep"] < n_repeats)
+            if k > 1:
+                assert bool((want["shrink"] > 0).any())
+        for key, value in got.items():
+            if key == "it":
+                assert value == want[key]
+            else:
+                assert torch.equal(value, want[key]), (k, key)
+        assert torch.equal(g_new.get_state(), g_old.get_state())
+
+
+class _StaleStepGraph(tnest._SliceGraph):
+    """The graph holder with the card's graph stood in for on the CPU:
+    after the warm-up every call runs the step it kept at its capture, the
+    first outer step's, as a replay runs the kernels captured then."""
+
+    def run(self, step):
+        if self.graph is None and self.warm < self.WARMUP:
+            step()
+            self.warm += 1
+            return False
+        if self.graph is None:
+            self.graph = step
+            self.captures += 1
+        self.graph()
+        return True
+
+    def close(self):
+        self.graph = None
+
+
+def test_replace_batch_on_the_run_buffers_matches_eager():
+    """Outer steps on one run's buffers (``_replace_batch(graph=...)``):
+    each step's live set, survivors and threshold are loaded into the
+    buffers the kept step reads, and the replacements, calls and
+    iterations equal the eager path's bit for bit, step after step."""
+    rng = np.random.default_rng(31)
+    nlive, K, d = 40, 6, 3
+    live_x = torch.as_tensor(0.5 + rng.uniform(-0.06, 0.06, size=(nlive, d)))
+    live_l = _bump(live_x)
+    g_eager = torch.Generator().manual_seed(9)
+    g_graph = torch.Generator().manual_seed(9)
+    holder = _StaleStepGraph(g_graph)
+    n_inner = 0
+    for _ in range(4):
+        order = torch.argsort(live_l, stable=True)
+        lstar = live_l[order[K - 1]]
+        want = tnest._replace_batch(_bump, g_eager, live_x, live_l, order[K:],
+                                    lstar, K, 3, 8, 2)
+        got = tnest._replace_batch(_bump, g_graph, live_x, live_l, order[K:],
+                                   lstar, K, 3, 8, 2, graph=holder)
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b)
+        assert got[3] == want[3]
+        n_inner += got[3]
+        live_x = live_x.index_copy(0, order[:K], got[0])
+        live_l = live_l.index_copy(0, order[:K], got[1])
+    assert torch.equal(g_graph.get_state(), g_eager.get_state())
+    assert holder.captures == 1 and holder.warm == holder.WARMUP
+    assert n_inner > holder.WARMUP
+
+
 def test_seed_live_points_match_jax(jax_gaussian_gp):
     """Same numpy draws, same surrogate: the same live set; a plain GP has
     no infeasible plateau, so the ledger starts at log 1 = 0. The GP-mean

@@ -19,7 +19,10 @@ the window (and the slice) with their details:
 - ``acq_refine_s.loop``: ``acq.refine`` seconds per iteration;
 - ``fit_evals.loop``: objective evaluations counted on ``gp.fit`` per
   iteration;
-- ``ns_inner_self_ms.evidence``: the mean ``ns.inner`` span, in ms;
+- ``ns_inner_self_ms.evidence``: the mean ``ns.inner`` span, in ms; its
+  detail gives the share of them replayed from a CUDA graph (count
+  ``graph``), the graphs captured per evidence (``ns.run``'s count
+  ``captures``) and the seconds of their captures (``ns.capture``);
 - ``ns_outside_inner_share.evidence``: the share of ``ns.evidence`` seconds
   outside ``ns.inner``, in %;
 - ``idle_named.loop`` / ``idle_named.evidence`` (``--trace 1`` on a card):
@@ -287,7 +290,13 @@ def _evidence(run):
     return {
         "ns_inner_self_ms.evidence": (
             1e3 * sum(inner) / len(inner) if inner else None,
-            {"inner": len(inner), "inner_per_evidence": len(inner) / n}),
+            {"inner": len(inner), "inner_per_evidence": len(inner) / n,
+             # inner iterations replayed from the run's CUDA graph
+             "graph_share": (100.0 * counted(spans, "ns.inner", "graph")
+                             / len(inner) if inner else None),
+             "captures_per_evidence": counted(spans, "ns.run", "captures")
+             / n,
+             "capture_s": total(spans, "ns.capture") / n}),
         "ns_outside_inner_share.evidence": (
             100.0 * (1.0 - sum(inner) / whole),
             {"evidences": n, "evidence_s": whole / n,
